@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) when it fails:
+
+1. build   — compile every CUDA kernel of the main path from
+             ``src/repro_torch/csrc`` with ``nvcc`` (one process per
+             source, all at once).
+2. parity  — call each kernel's wrapper at the main path's shapes and
+             hold it against its plain PyTorch version on the same inputs;
+             time kernel, plain version and, where one exists, the
+             PyTorch library call computing the same function.
+3. train   — the main path: preset ``lezo-opt13b`` at full width and
+             depth (OPT-13B, 40 layers, bf16, random weights from a seeded
+             ``torch.Generator``) with ``runtime.backend=pallas`` and
+             ``runtime.forward_backend=virtual``, 4 steps through
+             ``repro_torch.api.run``.  Kernel launch counts are zeroed
+             just before and read just after.
+4. check   — on the trained weights, the virtual pair's losses against
+             the materialized probes (kernel K1 perturbing in place), and
+             a one-step run of a small bf16 OPT on the card against the
+             same step on the CPU (plain versions).
+5. profile — one more main-path step under ``torch.profiler``: device
+             time by kernel and the device's idle share of the step.
+
+Prints one JSON line of kernels, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
+when CUDA is unavailable or the port's sources are missing.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+H100_BF16_FLOPS = 989e12      # dense tensor-core peak (H100 SXM data sheet)
+H100_F32_OPS = 67e12          # non-tensor float32 peak
+H100_BYTES = 3.35e12          # HBM3 bandwidth
+# CUDA-core operations per z draw (csrc/rng.cuh): 2 x mix32 (8 each), the
+# two counters (5), two uniforms (6), log, sqrt, cos and 3 multiplies,
+# counted as one each (6), plus the weight add and multiply (2).
+RNG_OPS = 35
+
+MAIN_OVERRIDES = {
+    "model.variant": "full", "runtime.backend": "pallas",
+    "runtime.forward_backend": "virtual", "run.steps": 4,
+    "run.log_every": 1, "run.eval_every": 0,
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps=5, warmup=1):
+    """Mean milliseconds of ``fn()`` on the card (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, tensor_flops=0.0, cuda_ops=0.0):
+    """Least time (ms) for the work and what bounds it."""
+    t_bytes = nbytes / H100_BYTES
+    t_ops = max(tensor_flops / H100_BF16_FLOPS, cuda_ops / H100_F32_OPS)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def close(got, want, name):
+    """Per element |got - want| <= 2^-7 |want| + 2^-8 max|want|: one
+    bf16 rounding step of the output plus a floor near zero."""
+    import torch
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = 2.0 ** -7 * want.abs() + 2.0 ** -8 * want.abs().max()
+    if not bool(torch.isfinite(got).all()) or not bool((err <= tol).all()):
+        raise SystemExit(f"{name}: kernel disagrees with its plain version "
+                         f"(max abs err {err.max().item():.3e})")
+    return err.max().item()
+
+
+def bf16_ulps(a, b):
+    """Distance in bf16 steps between two bf16 tensors."""
+    import torch
+
+    def order(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (order(a) - order(b)).abs()
+
+
+# ------------------------------------------------------------------ phases
+def phase_build():
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    reports = _build.build_all()
+    for name, rep in reports.items():
+        lines = [ln.strip() for ln in rep.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: " + ("; ".join(lines[-4:]) or rep.strip()))
+    log(f"[build] {len(reports)} sources in "
+        f"{time.perf_counter() - t:.1f} s")
+
+
+def phase_parity(cfg, eps):
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import zo_axpy as kzo
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    bf = torch.bfloat16
+    D, Fd, V, H = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads
+    dh = cfg.head_dim
+    B, S = 16, 63                      # lezo-opt13b: batch 16, seq_len 64
+    M = B * S
+    rows = {}
+
+    # K1: masked (4, D*F) rows in place
+    theta = (torch.randn((4, D * Fd), generator=g, device=dev, dtype=bf)
+             * 0.02)
+    mask = torch.tensor([True, False, True, False])
+    seed, scale = 0x1234567, -eps
+    got, want = theta.clone(), theta.clone()
+    kzo.zo_axpy_2d_(got, mask, seed, scale, 1.0)
+    kref.zo_axpy_2d_(want, mask, seed, scale, 1.0)
+    torch.cuda.synchronize()
+    if not torch.equal(got[~mask.to(dev)].view(torch.int16),
+                       theta[~mask.to(dev)].view(torch.int16)):
+        raise SystemExit("zo_axpy_2d: a masked-off row changed")
+    ulps = bf16_ulps(got[mask.to(dev)], want[mask.to(dev)]).max().item()
+    if ulps > 1:
+        raise SystemExit(f"zo_axpy_2d: active rows differ by {ulps} bf16 ulp")
+    err = (got.float() - want.float()).abs().max().item()
+    n_act = int(mask.sum()) * D * Fd
+    b_ms, b_by = bound(n_act * 2 * 2, cuda_ops=n_act * RNG_OPS)
+    rows["zo_axpy_2d"] = dict(
+        max_abs_err=err, tolerance="masked rows bit-equal; active <= 1 bf16 "
+        f"ulp (got {ulps})",
+        ms=time_ms(lambda: kzo.zo_axpy_2d_(got, mask, seed, scale, 1.0)),
+        plain_ms=time_ms(lambda: kref.zo_axpy_2d_(want, mask, seed, scale,
+                                                  1.0), reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[parity] zo_axpy_2d (4, {D * Fd}) bf16: max|err| {err:.3e}, "
+        f"{ulps} ulp")
+    del theta, got, want
+
+    # K3: P = 2 stacked probes of the +-eps pair, both FFN shapes
+    w_seed = 0xBEEF
+    for K, N in ((D, Fd), (Fd, D)):
+        x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
+        w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * K ** -0.5
+        args = ((w_seed, w_seed), (eps, -eps), (True, True))
+        got = fmm.pmatmul_stack(x, w, *args)
+        want = fref.pmatmul_stack(x, w, *args)
+        err = close(got, want, f"pmatmul_stack ({K}, {N})")
+        for p, s in enumerate((eps, -eps)):
+            single = fmm.pmatmul(x[p], w, w_seed, s, True)
+            if not torch.equal(single.view(torch.int16),
+                               got[p].view(torch.int16)):
+                raise SystemExit("pmatmul_stack at P = 2 is not bit-equal "
+                                 "to two pmatmul calls")
+        off = fmm.pmatmul_stack(x, w, (w_seed, w_seed), (eps, -eps),
+                                (False, False))
+        close(off, x @ w, f"inactive pmatmul_stack ({K}, {N})")
+        log(f"[parity] pmatmul_stack x (2, {M}, {K}) @ W ({K}, {N}): "
+            f"max|err| {err:.3e}; P=2 == 2 x pmatmul bitwise")
+        if (K, N) == (D, Fd):
+            b_ms, b_by = bound((x.numel() + w.numel() + got.numel()) * 2,
+                               tensor_flops=2.0 * 2 * M * K * N,
+                               cuda_ops=K * N * RNG_OPS)
+            rows["pmatmul_stack"] = dict(
+                max_abs_err=err,
+                tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|; P=2 "
+                "bit-equal to two pmatmul calls",
+                ms=time_ms(lambda: fmm.pmatmul_stack(x, w, *args)),
+                plain_ms=time_ms(lambda: fref.pmatmul_stack(x, w, *args),
+                                 reps=2),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: torch.matmul(x, w)))
+        del x, w, got, want, off
+
+    # K4: the tied head, embed/tok read through trans counters
+    tok = torch.randn((V, D), generator=g, device=dev, dtype=bf) * 0.02
+    h = torch.randn((B, S, D), generator=g, device=dev, dtype=bf)
+    kw = dict(trans=True, ld=D)
+    got = fmm.pmatmul(h, tok.T, w_seed, eps, True, **kw)
+    want = fref.pmatmul(h, tok.T, w_seed, eps, True, **kw)
+    err = close(got, want, "pmatmul head")
+    b_ms, b_by = bound((h.numel() + tok.numel() + got.numel()) * 2,
+                       tensor_flops=2.0 * M * D * V, cuda_ops=D * V * RNG_OPS)
+    rows["pmatmul"] = dict(
+        max_abs_err=err, tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|",
+        ms=time_ms(lambda: fmm.pmatmul(h, tok.T, w_seed, eps, True, **kw)),
+        plain_ms=time_ms(lambda: fref.pmatmul(h, tok.T, w_seed, eps, True,
+                                              **kw), reps=2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.matmul(h, tok.T)))
+    log(f"[parity] pmatmul h ({B}, {S}, {D}) @ tok.T ({D}, {V}) trans: "
+        f"max|err| {err:.3e}")
+    del tok, h, got, want
+
+    # K2: the paired forward's attention, (P*B, S, H, 1, dh)
+    q = torch.randn((2 * B, S, H, 1, dh), generator=g, device=dev, dtype=bf)
+    k = torch.randn((2 * B, S, H, dh), generator=g, device=dev, dtype=bf)
+    v = torch.randn((2 * B, S, H, dh), generator=g, device=dev, dtype=bf)
+    got = kfa.flash_attention(q, k, v, causal=True)
+    want = kfa.flash_attention_plain(q, k, v, causal=True)
+    err = close(got, want, "flash_attention")
+    qs, ks, vs = (t.reshape(2 * B, S, H, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(4 * q.numel() * 2,
+                       tensor_flops=4.0 * 2 * B * H * dh * pairs)
+    rows["flash_attention"] = dict(
+        max_abs_err=err, tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|",
+        ms=time_ms(lambda: kfa.flash_attention(q, k, v, causal=True),
+                   reps=20),
+        plain_ms=time_ms(lambda: kfa.flash_attention_plain(q, k, v,
+                                                           causal=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), reps=20))
+    log(f"[parity] flash_attention ({2 * B}, {S}, {H}, 1, {dh}): "
+        f"max|err| {err:.3e}")
+    del q, k, v, got, want, qs, ks, vs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _counters():
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import zo_axpy as kzo
+    return {"zo_axpy_2d": kzo.counter, "flash_attention": kfa.counter,
+            "pmatmul_stack": fmm.stack_counter,
+            "pmatmul": fmm.single_counter}
+
+
+def phase_train():
+    import torch
+    from repro_torch import api
+
+    spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    result = api.run(spec)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    hist = result["history"]
+    for i, step in enumerate(hist["step"]):
+        log(f"[train] step {step}: loss {hist['loss'][i]:.6f} "
+            f"projected_grad {hist['projected_grad'][i]:.6e} "
+            f"active_layers {hist['active_layers'][i]} "
+            f"seconds {hist['step_seconds'][i]:.3f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train] {spec.run.steps} steps in {time.perf_counter() - t:.1f} s "
+        f"(init included); peak memory {peak:.2f} GiB; launches {launches}")
+    losses = hist["loss"]
+    if len(losses) != spec.run.steps or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"train: losses not finite / missing: {losses}")
+    cfg = api.derive(spec).model_cfg
+    L = cfg.num_layers
+    want = {"zo_axpy_2d": 14 * spec.run.steps,
+            "flash_attention": L * spec.run.steps,
+            "pmatmul_stack": 6 * L * spec.run.steps,
+            "pmatmul": 2 * spec.run.steps}
+    if launches != want:
+        raise SystemExit(f"train: launches {launches} != expected {want}")
+    return spec, cfg, hist["final_params"], launches
+
+
+def phase_check(spec, cfg, params):
+    """Virtual pair vs materialized probes on the trained weights, and a
+    small bf16 model's step on the card vs on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import fused
+    from repro_torch.api import runners
+    from repro_torch.core import rng, zo
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+
+    d = runners.derive(spec)
+    data = synthetic.make_dataset(d.task, 64)
+    batch = {k: torch.as_tensor(data[k][:spec.run.batch_size], device="cuda")
+             for k in ("tokens", "labels", "loss_mask")}
+    zspec = zo.build_spec(params, lm.zo_group_fn)
+    seed = rng.fold_py(rng.fold_py(0, 0xC0FFEE), 99)
+    masks, idxs, _ = zo.stratified_select(zspec, seed, d.n_drop)
+    eps = spec.optimizer.eps
+    pair = lm.lm_loss(cfg, params, batch, perturb=fused.make_pair_ctx(
+        seed, eps, masks, "virtual")).tolist()
+    mat = []
+    for s in (eps, -2 * eps):
+        zo.tree_axpy_(params, zspec, seed, s, masks, idxs, backend="pallas")
+        mat.append(lm.lm_loss(cfg, params, batch).item())
+    zo.tree_axpy_(params, zspec, seed, eps, masks, idxs, backend="pallas")
+    rel = [abs(a - b) / abs(b) for a, b in zip(pair, mat)]
+    log(f"[check] OPT-13B virtual pair {pair} vs materialized {mat}: "
+        f"rel diff {rel}")
+    if not all(math.isfinite(x) for x in pair + mat) or max(rel) > 1e-2:
+        raise SystemExit("check: virtual and materialized probe losses "
+                         "differ by more than 1e-2 relative")
+
+    from repro_torch.configs import opt
+    small = opt.opt_tiny(layers=2, d_model=128, vocab=512).with_(
+        dtype="bfloat16")
+    gen = torch.Generator().manual_seed(5)
+    p_cpu = lm.init_params(small, gen, "cpu")
+    flat = lm.params_to_numpy(p_cpu)
+    p_gpu = lm.params_from_numpy(small, flat, "cuda")
+    task = synthetic.TaskConfig(vocab=small.vocab, seq_len=32)
+    data = synthetic.make_dataset(task, 8)
+    out = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        b = {k: torch.as_tensor(data[k], device=dev)
+             for k in ("tokens", "labels", "loss_mask")}
+        sp = zo.build_spec(p, lm.zo_group_fn)
+        m, _, _ = zo.stratified_select(sp, 7, 1)
+        out[dev] = lm.lm_loss(small, p, b, perturb=fused.make_pair_ctx(
+            7, 1e-3, m, "virtual")).tolist()
+    rel = np.abs(np.array(out["cuda"]) - np.array(out["cpu"])) / np.abs(
+        np.array(out["cpu"]))
+    log(f"[check] small bf16 OPT pair losses card {out['cuda']} vs CPU "
+        f"plain {out['cpu']}: rel diff {rel.tolist()}")
+    if not np.all(np.isfinite(out["cuda"])) or rel.max() > 1e-2:
+        raise SystemExit("check: the card's small-model losses differ from "
+                         "the CPU's by more than 1e-2 relative")
+
+
+def phase_profile(spec, cfg, params):
+    """One more main-path step under ``torch.profiler``: device time by
+    kernel and the device's idle share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import estimators
+    from repro_torch.api import runners
+    from repro_torch.core import rng, zo
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+
+    d = runners.derive(spec)
+    data = synthetic.make_dataset(d.task, 64)
+    batch = {k: torch.as_tensor(data[k][:spec.run.batch_size], device="cuda")
+             for k in ("tokens", "labels", "loss_mask")}
+    step = estimators.make_step(
+        lambda p, b, perturb=None: lm.lm_loss(cfg, p, b, perturb=perturb),
+        zo.build_spec(params, lm.zo_group_fn), d.est_cfg)
+    base = rng.fold_py(spec.run.seed, 0xC0FFEE)
+    step(params, batch, spec.run.steps, base)            # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, batch, spec.run.steps + 1, base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    dev_us = {}                      # device kernels only: an aten op's
+    for e in prof.key_averages():    # row repeats its kernels' time
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            dev_us[e.key] = (us, e.count)
+    busy = sum(us for us, _ in dev_us.values()) / 1e6
+    log(f"[profile] step wall {wall:.3f} s, device busy {busy:.3f} s, "
+        f"idle share {max(0.0, 1 - busy / wall):.3f}")
+    if busy == 0:
+        raise SystemExit("profile: the trace holds no device time")
+    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile] {us / 1e3:9.3f} ms {n:6d} x  {key[:90]}")
+
+
+SOURCES = {
+    "zo_axpy_2d": ("src/repro_torch/csrc/zo_axpy.cu",
+                   "src/repro/kernels/zo_axpy.py:82"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:87"),
+    "pmatmul_stack": ("src/repro_torch/csrc/pmatmul.cu",
+                      "src/repro/fused/matmul.py:273"),
+    "pmatmul": ("src/repro_torch/csrc/pmatmul.cu",
+                "src/repro/fused/matmul.py:154"),
+}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails in a checkout without the port)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import api
+
+    t0 = time.perf_counter()
+    spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
+    cfg = api.derive(spec).model_cfg
+    phase_build()
+    rows = phase_parity(cfg, spec.optimizer.eps)
+    spec, cfg, params, launches = phase_train()
+    phase_check(spec, cfg, params)
+    phase_profile(spec, cfg, params)
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        r = rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"],
+                        "tolerance": r["tolerance"]})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Estimator protocol of the port (counterpart of
+``repro/estimators/base.py``): regenerable update directions, never
+materialized.
+
+An estimator probes the loss with seeded perturbations and returns a
+:class:`DirectionSet` — ``(seed, coefficient)`` pairs whose update is::
+
+    theta <- decay * theta - lr * sum_i coeffs[i] * z(seeds[i])
+
+Each z regenerates from its seed through the counter RNG, so optimizer
+state stays O(q) scalars.  The axpy sweeps update the parameters in
+place (the reference donates and aliases them).
+
+The scalars (losses, projected gradient, axpy scales) are float32 host
+values computed with numpy in the reference's op order, so the scale a
+kernel receives is the one the reference computes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+from repro_torch.core import zo
+
+
+@dataclasses.dataclass(frozen=True)
+class EstimatorConfig:
+    name: str = "two_point"
+    eps: float = 1e-3
+    lr: float = 1e-6
+    n_drop: int = 0               # 0 => MeZO; >0 => LeZO layer sparsity
+    policy: str = "stratified"    # stratified | uniform
+    backend: str = "dense"        # dense | scan | gather | pallas
+    fused_update: bool = True
+    weight_decay: float = 0.0
+    # materialized | virtual | virtual_ref — virtual probes evaluate
+    # loss(theta + s*eps*z) through the fused forward (repro_torch.fused)
+    forward_backend: str = "materialized"
+    # the virtual ±εz pair as ONE paired forward (bit-identical floats)
+    paired_probes: bool = True
+
+
+@dataclasses.dataclass
+class DirectionSet:
+    """q regenerable update directions.  ``restore`` is the scale that
+    undoes the probe perturbation still in the parameters (0.0 when the
+    probe left them untouched)."""
+    seeds: Tuple[int, ...]
+    coeffs: Tuple[np.float32, ...]
+    restore: Tuple[float, ...]
+    masks: Tuple
+    idxs: Tuple
+
+    def __len__(self):
+        return len(self.seeds)
+
+
+def host_f32(x) -> np.float32:
+    """A loss (0-dim tensor or float) as a float32 host scalar."""
+    return np.float32(x.item() if hasattr(x, "item") else x)
+
+
+class Estimator:
+    """Selection / axpy / update machinery shared by the estimators."""
+    name = "base"
+
+    def __init__(self, spec: zo.ZOSpec, cfg: EstimatorConfig):
+        if cfg.backend == "gather" and cfg.policy != "stratified":
+            raise ValueError("gather backend requires the stratified policy")
+        self.spec, self.cfg = spec, cfg
+
+    def select(self, seed: int):
+        """-> (masks {g: (L_g,) bool}, idxs {g: (k_g,) int64} | None,
+        n_active)."""
+        if self.cfg.policy == "stratified":
+            return zo.stratified_select(self.spec, seed, self.cfg.n_drop)
+        return zo.uniform_select(self.spec, seed, self.cfg.n_drop)
+
+    def _ax(self, p, scale, seed, masks, idxs, decay=1.0):
+        return zo.tree_axpy_(p, self.spec, seed, scale, masks, idxs,
+                             decay=decay, backend=self.cfg.backend)
+
+    @property
+    def virtual(self) -> bool:
+        return self.cfg.forward_backend != "materialized"
+
+    def _vloss(self, loss_fn, params, batch, seed, scale, masks):
+        """loss(theta + scale*z(seed)) with zero parameter writes."""
+        from repro_torch import fused
+        ctx = fused.make_ctx(seed, scale, masks, self.cfg.forward_backend)
+        return loss_fn(params, batch, perturb=ctx)
+
+    def _vloss_pair(self, loss_fn, params, batch, seed, eps, masks):
+        """The ±εz pair as ONE fused forward: the (2,) vector
+        [l_plus, l_minus], the floats of two ``_vloss`` calls."""
+        from repro_torch import fused
+        ctx = fused.make_pair_ctx(seed, eps, masks, self.cfg.forward_backend)
+        return loss_fn(params, batch, perturb=ctx)
+
+    def estimate(self, loss_fn, params, batch, seed):
+        """Probe the loss -> (params, DirectionSet, metrics)."""
+        raise NotImplementedError
+
+    def restore_probe(self, params, dirs: DirectionSet):
+        for i, r in enumerate(dirs.restore):
+            if r != 0.0:
+                self._ax(params, r, dirs.seeds[i], dirs.masks[i],
+                         dirs.idxs[i])
+        return params
+
+    def apply_update(self, params, dirs: DirectionSet, lr, decay=1.0):
+        """theta <- decay*theta - lr * sum_i coeffs[i] * z_i, as q axpy
+        passes (restore folded into the single pass when q == 1)."""
+        lr32 = np.float32(lr)
+        if self.cfg.fused_update and len(dirs) == 1 and dirs.restore[0] != 0.0:
+            scale = np.float32(dirs.restore[0]) - lr32 * dirs.coeffs[0]
+            return self._ax(params, scale, dirs.seeds[0], dirs.masks[0],
+                            dirs.idxs[0], decay)
+        params = self.restore_probe(params, dirs)
+        for i in range(len(dirs)):
+            self._ax(params, -lr32 * dirs.coeffs[i], dirs.seeds[i],
+                     dirs.masks[i], dirs.idxs[i], decay if i == 0 else 1.0)
+        return params

@@ -1,0 +1,47 @@
+"""Antithetic SPSA pair, MeZO/LeZO Algorithm 1 (counterpart of
+``repro/estimators/two_point.py``): perturb +eps, loss, perturb -2eps,
+loss, fused restore+update with scale ``eps - lr*g``.  Under a virtual
+forward backend the probes are fused forwards (one paired forward by
+default) and the step writes the parameters once, in the update.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.estimators.base import DirectionSet, Estimator, host_f32
+
+
+class TwoPointSPSA(Estimator):
+    name = "two_point"
+
+    def estimate(self, loss_fn, params, batch, seed):
+        cfg = self.cfg
+        masks, idxs, n_active = self.select(seed)
+        if self.virtual and cfg.paired_probes:
+            losses = self._vloss_pair(loss_fn, params, batch, seed, cfg.eps,
+                                      masks)
+            l_plus, l_minus = host_f32(losses[0]), host_f32(losses[1])
+            restore = 0.0
+        elif self.virtual:
+            l_plus = host_f32(self._vloss(loss_fn, params, batch, seed,
+                                          cfg.eps, masks))
+            l_minus = host_f32(self._vloss(loss_fn, params, batch, seed,
+                                           -cfg.eps, masks))
+            restore = 0.0
+        else:
+            self._ax(params, cfg.eps, seed, masks, idxs)
+            l_plus = host_f32(loss_fn(params, batch))
+            self._ax(params, -2.0 * cfg.eps, seed, masks, idxs)
+            l_minus = host_f32(loss_fn(params, batch))
+            restore = cfg.eps
+        g = (l_plus - l_minus) / np.float32(2.0 * cfg.eps)
+        dirs = DirectionSet(seeds=(seed,), coeffs=(g,), restore=(restore,),
+                            masks=(masks,), idxs=(idxs,))
+        metrics = {
+            "loss": np.float32(0.5) * (l_plus + l_minus),
+            "l_plus": l_plus,
+            "l_minus": l_minus,
+            "projected_grad": g,
+            "active_layers": n_active,
+        }
+        return params, dirs, metrics

@@ -1,0 +1,93 @@
+"""Kernels K3 and K4: the virtual-perturbation matmul (counterpart of
+``repro/fused/matmul.py``, whose Pallas kernels ``pmatmul_stack`` and
+``pmatmul`` they replace).
+
+``pmatmul_stack(x, w, seeds, scales, active)`` computes P probes
+``x[p] @ (w + scales[p]*z(seeds[p]))`` off one pass over W (K3);
+``pmatmul`` is the single-probe form with a LeZO ``active`` predicate
+(K4).  Both launch ``csrc/pmatmul.cu`` on CUDA tensors: it reads W in its
+stored layout through its strides (the tied head passes ``tok.T``, a
+view, with ``trans=True, ld=d_model``), masks ragged M/N/K itself, makes
+z per W tile (once for all probes when their seeds are equal), skips the
+RNG for a tile of an inactive layer, rounds ``w + s*z`` to bf16 and
+accumulates in f32.  On CPU tensors they run the plain versions in
+``fused/ref.py``.
+
+``row_off``/``col_off``/``ld``/``trans`` define the counter window into
+the stored leaf, as in the reference.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.fused import ref as fref
+from repro_torch.kernels import _build
+
+
+stack_counter = _build.Counter()     # K3
+single_counter = _build.Counter()    # K4
+
+
+def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off):
+    P, K = x.shape[0], x.shape[-1]
+    lead = x.shape[1:-1]
+    N = w.shape[1]
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError("pmatmul kernel takes bfloat16 x and w")
+    if P not in (1, 2):
+        raise ValueError(f"pmatmul kernel takes 1 or 2 probes, got {P}")
+    if w.shape[0] != K or x.device != w.device:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         f"({x.device}, {w.device}) do not match")
+    if w.stride(1) != 1 and w.stride(0) != 1:
+        raise ValueError("pmatmul kernel reads W row- or column-contiguous")
+    x3 = x.reshape(P, -1, K).contiguous()
+    M = x3.shape[1]
+    out = torch.empty((P, M, N), dtype=x.dtype, device=x.device)
+    if ld is None:
+        ld = w.shape[0] if trans else N
+    eff = [float(s) if a else 0.0 for s, a in zip(scales, active)]
+    fn = _build.function(
+        "pmatmul", "pmatmul_launch",
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_uint] * 3
+        + [ctypes.c_int, ctypes.c_void_p])
+    seed_arr = (ctypes.c_uint * P)(*[s & 0xFFFFFFFF for s in seeds])
+    scale_arr = (ctypes.c_float * P)(*eff)
+    with torch.cuda.device(x.device):
+        err = fn(P, x3.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+                 w.stride(0), w.stride(1), ctypes.addressof(seed_arr),
+                 ctypes.addressof(scale_arr), int(any(active)),
+                 int(len(set(seeds)) == 1), row_off & 0xFFFFFFFF,
+                 col_off & 0xFFFFFFFF, ld & 0xFFFFFFFF, int(trans),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pmatmul")
+    return out.reshape(P, *lead, N)
+
+
+def pmatmul(x, w, seed: int, scale, active=True, *, trans=False, ld=None,
+            row_off=0, col_off=0):
+    """K4: ``x @ (w + scale*z)``; x (..., K), w (K, N)."""
+    if x.device.type != "cuda":
+        return fref.pmatmul(x, w, seed, scale, active, trans=trans, ld=ld,
+                            row_off=row_off, col_off=col_off)
+    out = _launch(x[None], w, (seed,), (scale,), (bool(active),),
+                  trans=trans, ld=ld, row_off=row_off, col_off=col_off)
+    single_counter.launches += 1
+    return out[0]
+
+
+def pmatmul_stack(x, w, seeds, scales, active, *, trans=False, ld=None,
+                  row_off=0, col_off=0):
+    """K3: P stacked probes; x (P, ..., K), seeds/scales/active length P."""
+    if x.device.type != "cuda":
+        return fref.pmatmul_stack(x, w, seeds, scales, active, trans=trans,
+                                  ld=ld, row_off=row_off, col_off=col_off)
+    out = _launch(x, w, tuple(seeds), tuple(scales),
+                  tuple(bool(a) for a in active), trans=trans, ld=ld,
+                  row_off=row_off, col_off=col_off)
+    stack_counter.launches += 1
+    return out

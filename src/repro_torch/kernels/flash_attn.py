@@ -1,0 +1,111 @@
+"""Kernel K2: causal flash-attention forward (counterpart of
+``repro/kernels/flash_attn.py``, whose Pallas kernel it replaces, and of
+the attention ``repro/models/layers.py::flash_attention`` computes).
+
+Layout is the model's: q (B, Sq, KV, G, dh), k/v (B, Sk, KV, dh), out
+like q.  ``q_offset`` is the absolute position of q[0]; ``k_offset`` the
+position of k[0] (negative: leading always-visible keys).
+
+On a CUDA tensor the wrapper launches ``csrc/flash_attn.cu`` (bf16,
+dh in {32, 64, 128}; any Sq/Sk, masked; GQA as an index map).  On a CPU
+tensor it runs :func:`flash_attention_plain`, the reference's chunked
+online-softmax algorithm step for step (f32 running max/sum/acc, P
+rounded to the input type before P·V).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+counter = _build.Counter()
+
+
+def flash_attention_plain(q, k, v, *, causal=True, q_offset=0, k_offset=0,
+                          q_chunk=512, k_chunk=512):
+    """Plain PyTorch version of K2 (the reference's algorithm)."""
+    B, Sq, KV, G, dh = q.shape
+    Sk = k.shape[1]
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    if Sk % k_chunk:  # pad keys (padded slots masked out via position test)
+        pad = k_chunk - Sk % k_chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = dh ** -0.5
+    dev = q.device
+    out = torch.empty_like(q)
+    for q0 in range(0, Sq, q_chunk):
+        qb = q[:, q0:q0 + q_chunk].to(F32)
+        qc = qb.shape[1]
+        q_pos = q_offset + q0 + torch.arange(qc, device=dev)
+        m = torch.full((B, KV, G, qc), NEG_INF, dtype=F32, device=dev)
+        l = torch.zeros((B, KV, G, qc), dtype=F32, device=dev)
+        acc = torch.zeros((B, qc, KV, G, dh), dtype=F32, device=dev)
+        for k0 in range(0, k.shape[1], k_chunk):
+            if causal and k_offset + k0 > q_offset + q0 + qc - 1:
+                continue
+            kb = k[:, k0:k0 + k_chunk].to(F32)
+            vb = v[:, k0:k0 + k_chunk]
+            k_idx = k0 + torch.arange(k_chunk, device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+            msk = (k_idx < Sk)[None, :]
+            if causal:
+                msk = msk & (q_pos[:, None] >= (k_offset + k_idx)[None, :])
+            s = torch.where(msk, s, torch.tensor(NEG_INF, dtype=F32,
+                                                 device=dev))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype).to(F32),
+                              vb.to(F32))
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_new
+        den = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+        out[:, q0:q0 + q_chunk] = (acc / den).to(q.dtype)
+    return out
+
+
+def _launch(q, k, v, *, causal, q_offset, k_offset):
+    B, Sq, KV, G, dh = q.shape
+    Sk = k.shape[1]
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash kernel takes bfloat16 q/k/v")
+    if dh not in (32, 64, 128):
+        raise ValueError(f"flash kernel takes dh in (32, 64, 128), got {dh}")
+    if k.shape != (B, Sk, KV, dh) or v.shape != k.shape:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
+                         f"not match q {tuple(q.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    fn = _build.function(
+        "flash_attn", "flash_fwd_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Sk, KV, G, dh, int(q_offset), int(k_offset),
+                 int(bool(causal)), float(dh ** -0.5),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_fwd")
+    counter.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, q_offset=0, k_offset=0,
+                    q_chunk=512, k_chunk=512):
+    """K2 on CUDA tensors (``q_chunk``/``k_chunk`` are the plain path's
+    chunking; the kernel uses its own tiles), the plain version on CPU."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal=causal, q_offset=q_offset,
+                       k_offset=k_offset)
+    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                 k_offset=k_offset, q_chunk=q_chunk,
+                                 k_chunk=k_chunk)

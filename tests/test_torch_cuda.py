@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at small and ragged shapes.  Marked ``cuda``: they skip on a
+machine without a GPU and run on one with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: K1 masked rows bit-equal and active rows within 1 bf16 ulp
+(z differs from the plain version by a few float32 ulp); K2-K4 within
+one bf16 rounding step of the output (2^-7 relative, plus 2^-8 of the
+largest magnitude near zero); K3 at P = 2 bit-equal to two K4 calls.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import fused
+from repro_torch.configs import opt
+from repro_torch.core import zo
+from repro_torch.fused import matmul as fmm
+from repro_torch.fused import ref as fref
+from repro_torch.kernels import flash_attn as kfa
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import zo_axpy as kzo
+from repro_torch.models import lm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    got, want = got.float(), want.float()
+    tol = 2.0 ** -7 * want.abs() + 2.0 ** -8 * want.abs().max()
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= tol).all()), (got - want).abs().max()
+
+
+def _ulps(a, b):
+    def order(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (order(a) - order(b)).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zo_axpy_kernel(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    theta = torch.randn((5, 3001), generator=g, device=dev).to(dtype)
+    mask = torch.tensor([True, False, True, True, False])
+    got, want = theta.clone(), theta.clone()
+    kzo.counter.launches = 0
+    kzo.zo_axpy_2d_(got, mask, 0xC0FFEE, 1e-2, 0.99)
+    kref.zo_axpy_2d_(want, mask, 0xC0FFEE, 1e-2, 0.99)
+    assert kzo.counter.launches == 1
+    m = mask.to(dev)
+    assert torch.equal(got[~m], theta[~m])
+    if dtype == torch.bfloat16:
+        assert _ulps(got[m], want[m]) <= 1
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("q_offset,k_offset,Sk,G,dh", [
+    (0, 0, 63, 1, 128), (8, 0, 90, 2, 64), (0, -5, 40, 1, 32)])
+def test_flash_kernel(dev, q_offset, k_offset, Sk, G, dh):
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, Sq, KV = 3, 37, 2
+    q = torch.randn((B, Sq, KV, G, dh), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, Sk, KV, dh), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, Sk, KV, dh), generator=g, device=dev).bfloat16()
+    kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset)
+    _close(kfa.flash_attention(q, k, v, **kw),
+           kfa.flash_attention_plain(q, k, v, k_chunk=64, **kw))
+
+
+@pytest.mark.parametrize("M,K,N,trans", [(100, 72, 130, False),
+                                         (33, 200, 64, True),
+                                         (129, 256, 257, False)])
+def test_pmatmul_kernels(dev, M, K, N, trans):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((2, M, K), generator=g, device=dev).bfloat16()
+    w = (torch.randn((N, K) if trans else (K, N), generator=g, device=dev)
+         * K ** -0.5).bfloat16()
+    w = w.T if trans else w
+    kw = dict(trans=trans, ld=K if trans else None, row_off=3, col_off=5)
+    for active in ((True, True), (False, False)):
+        got = fmm.pmatmul_stack(x, w, (9, 9), (0.05, -0.05), active, **kw)
+        _close(got, fref.pmatmul_stack(x, w, (9, 9), (0.05, -0.05), active,
+                                       **kw))
+        for p, s in enumerate((0.05, -0.05)):
+            one = fmm.pmatmul(x[p], w, 9, s, active[p], **kw)
+            assert torch.equal(one.view(torch.int16),
+                               got[p].view(torch.int16))
+
+
+def test_small_model_pair_loss_matches_cpu(dev):
+    cfg = opt.opt_tiny(layers=2, d_model=128, vocab=512).with_(
+        dtype="bfloat16")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_gpu = lm.params_from_numpy(cfg, lm.params_to_numpy(p_cpu), dev)
+    r = np.random.default_rng(3)
+    toks = r.integers(0, 512, (4, 31))
+    out = {}
+    for d, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        b = {"tokens": torch.tensor(toks, device=d),
+             "labels": torch.tensor(toks, device=d),
+             "loss_mask": torch.ones((4, 31), device=d)}
+        m, _, _ = zo.stratified_select(zo.build_spec(p, lm.zo_group_fn), 7, 1)
+        out[d] = lm.lm_loss(cfg, p, b, perturb=fused.make_pair_ctx(
+            7, 1e-3, m, "virtual")).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-2, atol=0)
+
+
+def test_paired_equals_unpaired_on_card(dev):
+    """The pairing contract on the card: the paired forward's losses equal
+    two single-probe virtual forwards bit for bit."""
+    cfg = opt.opt_tiny(layers=2, d_model=128, vocab=512).with_(
+        dtype="bfloat16")
+    p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(4), dev)
+    toks = torch.tensor(np.random.default_rng(4).integers(0, 512, (4, 31)),
+                        device=dev)
+    b = {"tokens": toks, "labels": toks,
+         "loss_mask": torch.ones((4, 31), device=dev)}
+    m, _, _ = zo.stratified_select(zo.build_spec(p, lm.zo_group_fn), 9, 1)
+    pair = lm.lm_loss(cfg, p, b, perturb=fused.make_pair_ctx(
+        9, 1e-3, m, "virtual"))
+    for i, s in enumerate((1e-3, -1e-3)):
+        one = lm.lm_loss(cfg, p, b, perturb=fused.make_ctx(9, s, m,
+                                                           "virtual"))
+        assert torch.equal(one, pair[i]), (i, one.item(), pair[i].item())
