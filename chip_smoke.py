@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases build,parity,train,check,profile]
 
-Phases, each of which fails the run (non-zero exit) when it fails:
+Phases (all by default; ``check`` and ``profile`` need ``train``), each
+of which fails the run (non-zero exit) when it fails:
 
 1. build   — compile every CUDA kernel of the main path from
              ``src/repro_torch/csrc`` with ``nvcc`` (one process per
@@ -11,13 +12,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. parity  — call each kernel's wrapper at the main path's shapes and
              hold it against its plain PyTorch version on the same inputs;
              time kernel, plain version and, where one exists, the
-             PyTorch library call computing the same function.
+             PyTorch library call computing the same function.  K3 is
+             also timed with no active probe at (D, d_ff) and active at
+             (D, D), the shape of 4 of a layer's 6 launches.
 3. train   — the main path: preset ``lezo-opt13b`` at full width and
              depth (OPT-13B, 40 layers, bf16, random weights from a seeded
              ``torch.Generator``) with ``runtime.backend=pallas`` and
              ``runtime.forward_backend=virtual``, 4 steps through
              ``repro_torch.api.run``.  Kernel launch counts are zeroed
-             just before and read just after.
+             just before and read just after; every K3/K4 launch must
+             load by TMA.
 4. check   — on the trained weights, the virtual pair's losses against
              the materialized probes (kernel K1 perturbing in place), and
              a one-step run of a small bf16 OPT on the card against the
@@ -29,6 +33,7 @@ Prints one JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when CUDA is unavailable or the port's sources are missing.
 """
+import argparse
 import json
 import math
 import os
@@ -110,8 +115,9 @@ def phase_build():
     reports = _build.build_all()
     for name, rep in reports.items():
         lines = [ln.strip() for ln in rep.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: " + ("; ".join(lines[-4:]) or rep.strip()))
+                 if "registers" in ln or "spill" in ln
+                 or "warning" in ln.lower()]
+        log(f"[build] {name}: " + ("; ".join(lines) or rep.strip()))
     log(f"[build] {len(reports)} sources in "
         f"{time.perf_counter() - t:.1f} s")
 
@@ -196,8 +202,24 @@ def phase_parity(cfg, eps):
                 plain_ms=time_ms(lambda: fref.pmatmul_stack(x, w, *args),
                                  reps=2),
                 bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lambda: torch.matmul(x, w)))
+                library_ms=time_ms(lambda: torch.matmul(x, w)),
+                inactive_ms=time_ms(lambda: fmm.pmatmul_stack(
+                    x, w, (w_seed, w_seed), (eps, -eps), (False, False))))
         del x, w, got, want, off
+
+    # K3 active at (D, D): q, k, v and the attention output projection
+    x = torch.randn((2, M, D), generator=g, device=dev, dtype=bf)
+    w = torch.randn((D, D), generator=g, device=dev, dtype=bf) * D ** -0.5
+    args = ((w_seed, w_seed), (eps, -eps), (True, True))
+    close(fmm.pmatmul_stack(x, w, *args), fref.pmatmul_stack(x, w, *args),
+          f"pmatmul_stack ({D}, {D})")
+    rows["pmatmul_stack"]["dd_ms"] = time_ms(
+        lambda: fmm.pmatmul_stack(x, w, *args))
+    log(f"[parity] pmatmul_stack ({D}, {D}) active: within tolerance; K3 "
+        f"ms: active (D, d_ff) {rows['pmatmul_stack']['ms']:.3f}, inactive "
+        f"(D, d_ff) {rows['pmatmul_stack']['inactive_ms']:.3f}, active "
+        f"(D, D) {rows['pmatmul_stack']['dd_ms']:.3f}")
+    del x, w
 
     # K4: the tied head, embed/tok read through trans counters
     tok = torch.randn((V, D), generator=g, device=dev, dtype=bf) * 0.02
@@ -262,13 +284,15 @@ def phase_train():
 
     spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
     torch.cuda.reset_peak_memory_stats()
+    from repro_torch.fused import matmul as fmm
     counters = _counters()
-    for c in counters.values():
+    for c in list(counters.values()) + list(fmm.route_counters.values()):
         c.launches = 0
     t = time.perf_counter()
     result = api.run(spec)
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
+    routes = {n: c.launches for n, c in fmm.route_counters.items()}
     hist = result["history"]
     for i, step in enumerate(hist["step"]):
         log(f"[train] step {step}: loss {hist['loss'][i]:.6f} "
@@ -289,6 +313,11 @@ def phase_train():
             "pmatmul": 2 * spec.run.steps}
     if launches != want:
         raise SystemExit(f"train: launches {launches} != expected {want}")
+    k34 = launches["pmatmul_stack"] + launches["pmatmul"]
+    log(f"[train] K3/K4 launches by load route: {routes}")
+    if routes != {"tma": k34, "thread": 0}:
+        raise SystemExit(f"train: K3/K4 routes {routes}: every launch of "
+                         "the main path must load by TMA")
     return spec, cfg, hist["final_params"], launches
 
 
@@ -406,7 +435,18 @@ SOURCES = {
 }
 
 
+PHASES = ("build", "parity", "train", "check", "profile")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run (default: all)")
+    phases = ap.parse_args().phases.split(",")
+    if set(phases) - set(PHASES) or (
+            {"check", "profile"} & set(phases) and "train" not in phases):
+        ap.error(f"--phases takes a subset of {','.join(PHASES)}; check "
+                 "and profile need train")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -421,21 +461,28 @@ def main() -> int:
     t0 = time.perf_counter()
     spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
     cfg = api.derive(spec).model_cfg
-    phase_build()
-    rows = phase_parity(cfg, spec.optimizer.eps)
-    spec, cfg, params, launches = phase_train()
-    phase_check(spec, cfg, params)
-    phase_profile(spec, cfg, params)
+    rows, launches = {}, {}
+    if "build" in phases:
+        phase_build()
+    if "parity" in phases:
+        rows = phase_parity(cfg, spec.optimizer.eps)
+    if "train" in phases:
+        spec, cfg, params, launches = phase_train()
+    if "check" in phases:
+        phase_check(spec, cfg, params)
+    if "profile" in phases:
+        phase_profile(spec, cfg, params)
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        r = rows[name]
+        r = rows.get(name, {})
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"],
-                        "tolerance": r["tolerance"]})
+                        "replaces": replaces,
+                        "launches": launches.get(name),
+                        **{k: r.get(k) for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "tolerance")},
+                        **{k: r[k] for k in ("inactive_ms", "dd_ms")
+                           if k in r}})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -9,8 +9,10 @@
 stored layout through its strides (the tied head passes ``tok.T``, a
 view, with ``trans=True, ld=d_model``), masks ragged M/N/K itself, makes
 z per W tile (once for all probes when their seeds are equal), skips the
-RNG for a tile of an inactive layer, rounds ``w + s*z`` to bf16 and
-accumulates in f32.  On CPU tensors they run the plain versions in
+RNG for a launch with no active probe, rounds ``w + s*z`` to bf16 and
+accumulates in f32.  Each operand is loaded by TMA where TMA can describe
+it (``load_routes``), else by per-thread loads; ``route_counters`` counts
+launches by route.  On CPU tensors they run the plain versions in
 ``fused/ref.py``.
 
 ``row_off``/``col_off``/``ld``/``trans`` define the counter window into
@@ -28,6 +30,22 @@ from repro_torch.kernels import _build
 
 stack_counter = _build.Counter()     # K3
 single_counter = _build.Counter()    # K4
+# K3 and K4 launches by load route: "tma" when TMA loads both x and W,
+# "thread" when per-thread loads fill either.
+route_counters = {"tma": _build.Counter(), "thread": _build.Counter()}
+
+
+def _tma_ok(t: torch.Tensor, pitch: int) -> bool:
+    """TMA describes a bf16 operand whose base and row pitch (elements)
+    are 16-byte aligned."""
+    return t.data_ptr() % 16 == 0 and (pitch * t.element_size()) % 16 == 0
+
+
+def load_routes(x3: torch.Tensor, w: torch.Tensor):
+    """(x_tma, w_tma): whether TMA can load x (P, M, K) contiguous and W
+    (K, N), read row- (N-contiguous) or column-major (K-contiguous)."""
+    pitch = w.stride(0) if w.stride(1) == 1 else w.stride(1)
+    return _tma_ok(x3, x3.shape[-1]), _tma_ok(w, pitch)
 
 
 def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off):
@@ -54,7 +72,8 @@ def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off):
         [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_uint] * 3
-        + [ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    x_tma, w_tma = load_routes(x3, w)
     seed_arr = (ctypes.c_uint * P)(*[s & 0xFFFFFFFF for s in seeds])
     scale_arr = (ctypes.c_float * P)(*eff)
     with torch.cuda.device(x.device):
@@ -63,8 +82,10 @@ def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off):
                  ctypes.addressof(scale_arr), int(any(active)),
                  int(len(set(seeds)) == 1), row_off & 0xFFFFFFFF,
                  col_off & 0xFFFFFFFF, ld & 0xFFFFFFFF, int(trans),
+                 int(x_tma), int(w_tma),
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "pmatmul")
+    route_counters["tma" if x_tma and w_tma else "thread"].launches += 1
     return out.reshape(P, *lead, N)
 
 

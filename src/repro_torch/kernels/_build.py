@@ -16,7 +16,9 @@ Flags: ``-O3`` and no ``--use_fast_math``, since ``__logf``/``__cosf``
 would move z far beyond the few ulp the reference tolerates;
 ``--fmad=false`` keeps ``decay*x + scale*z`` and the RNG's float steps as
 separately rounded multiplies and adds, the op order the plain PyTorch
-versions and the reference use.
+versions and the reference use.  ``-ldl``: ``pmatmul.cu`` takes
+``cuTensorMapEncodeTiled`` from ``libcuda.so.1`` with ``dlsym``, so no
+library links against ``libcuda``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("zo_axpy", "flash_attn", "pmatmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         "-ldl")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

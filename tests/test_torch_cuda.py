@@ -80,17 +80,27 @@ def test_flash_kernel(dev, q_offset, k_offset, Sk, G, dh):
            kfa.flash_attention_plain(q, k, v, k_chunk=64, **kw))
 
 
-@pytest.mark.parametrize("M,K,N,trans", [(100, 72, 130, False),
-                                         (33, 200, 64, True),
-                                         (129, 256, 257, False)])
-def test_pmatmul_kernels(dev, M, K, N, trans):
+@pytest.mark.parametrize("M,K,N,trans,route", [
+    (100, 72, 130, False, "thread"),     # W pitch 260 B: per-thread W loads
+    (33, 200, 64, True, "tma"),
+    (129, 256, 257, False, "thread"),
+    (257, 128, 256, False, "tma"),       # M just past a tile
+    (1008, 320, 200, False, "tma"),      # the main path's M; N % 128 != 0
+    (300, 72, 136, False, "tma"),        # K not a multiple of BK = 64
+    (1008, 256, 392, True, "tma"),       # the tied head's layout, ragged N
+    (50, 100, 70, True, "thread"),       # x and tok pitch 200 B
+])
+def test_pmatmul_kernels(dev, M, K, N, trans, route):
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((2, M, K), generator=g, device=dev).bfloat16()
     w = (torch.randn((N, K) if trans else (K, N), generator=g, device=dev)
          * K ** -0.5).bfloat16()
     w = w.T if trans else w
     kw = dict(trans=trans, ld=K if trans else None, row_off=3, col_off=5)
-    for active in ((True, True), (False, False)):
+    for c in fmm.route_counters.values():
+        c.launches = 0
+    # (True, False): the inactive probe's scale 0 must give x @ w exactly
+    for active in ((True, True), (False, False), (True, False)):
         got = fmm.pmatmul_stack(x, w, (9, 9), (0.05, -0.05), active, **kw)
         _close(got, fref.pmatmul_stack(x, w, (9, 9), (0.05, -0.05), active,
                                        **kw))
@@ -98,6 +108,8 @@ def test_pmatmul_kernels(dev, M, K, N, trans):
             one = fmm.pmatmul(x[p], w, 9, s, active[p], **kw)
             assert torch.equal(one.view(torch.int16),
                                got[p].view(torch.int16))
+    assert {k: c.launches for k, c in fmm.route_counters.items()} == {
+        "tma": 9 * (route == "tma"), "thread": 9 * (route == "thread")}
 
 
 def test_small_model_pair_loss_matches_cpu(dev):

@@ -101,3 +101,21 @@ def test_layer_seed_matches_reference():
     for path, layer in (("embed/tok", 0), ("stages/s0/b0/mix/wq", 7)):
         assert tref.layer_seed(SEED, path, layer) == int(
             jref.layer_seed(jnp.uint32(SEED), path, layer))
+
+
+@pytest.mark.parametrize("K,N,trans,want", [
+    (64, 20480, False, (True, True)),        # FFN up projection's pitch
+    (24, 5120, False, (True, True)),         # FFN down projection's pitch
+    (5120, 72, True, (True, True)),          # tied head, tok.T
+    (72, 130, False, (True, False)),         # W pitch 260 B
+    (100, 70, True, (False, False)),         # x and tok pitch 200 B
+    (256, 257, False, (True, False)),
+])
+def test_pmatmul_load_routes(K, N, trans, want):
+    """K3/K4 load an operand by TMA only where its base and row pitch are
+    16-byte aligned; the others take per-thread loads."""
+    x = torch.zeros((2, 3, K), dtype=torch.bfloat16)
+    w = torch.zeros((N, K) if trans else (K, N), dtype=torch.bfloat16)
+    assert tmm.load_routes(x, w.T if trans else w) == want
+    shifted = torch.zeros(K * N + 1, dtype=torch.bfloat16)[1:].view(w.shape)
+    assert tmm.load_routes(x, shifted.T if trans else shifted)[1] is False
