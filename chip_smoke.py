@@ -1,39 +1,53 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases build,parity,train,check,profile]
+    python3 chip_smoke.py [--phases build,rng,parity,train,check,profile]
 
 Phases (all by default; ``check`` and ``profile`` need ``train``), each
 of which fails the run (non-zero exit) when it fails:
 
 1. build   — compile every CUDA kernel of the main path from
              ``src/repro_torch/csrc`` with ``nvcc`` (one process per
-             source, all at once).
-2. parity  — call each kernel's wrapper at the main path's shapes and
+             source, all at once); count from the SASS the instructions
+             one K1 element issues (``repro_torch.kernels.sass``) and the
+             tensor-core instructions of K2.
+2. rng     — the kernels' float part of z against the plain versions'
+             expressions on all 2^24 inputs each (``csrc/rng_check.cu``):
+             any mismatch fails the run.
+3. parity  — call each kernel's wrapper at the main path's shapes and
              hold it against its plain PyTorch version on the same inputs;
              time kernel, plain version and, where one exists, the
-             PyTorch library call computing the same function.  K3 is
-             also timed with no active probe at (D, d_ff) and active at
-             (D, D), the shape of 4 of a layer's 6 launches.
-3. train   — the main path: preset ``lezo-opt13b`` at full width and
+             PyTorch library call computing the same function (the timed
+             launches queue behind a sleep on the stream, so the card and
+             not the host sets the pace).  K3
+             is also timed with no active probe at (D, d_ff) and active at
+             (D, D), the shape of 4 of a layer's 6 launches; K2 also at a
+             long sequence (S = 1024), off the main path.
+4. train   — the main path: preset ``lezo-opt13b`` at full width and
              depth (OPT-13B, 40 layers, bf16, random weights from a seeded
              ``torch.Generator``) with ``runtime.backend=pallas`` and
              ``runtime.forward_backend=virtual``, 4 steps through
              ``repro_torch.api.run``.  Kernel launch counts are zeroed
              just before and read just after; every K3/K4 launch must
              load by TMA.
-4. check   — on the trained weights, the virtual pair's losses against
+5. check   — on the trained weights, the virtual pair's losses against
              the materialized probes (kernel K1 perturbing in place), and
              a one-step run of a small bf16 OPT on the card against the
-             same step on the CPU (plain versions).
-5. profile — one more main-path step under ``torch.profiler``: device
-             time by kernel and the device's idle share of the step.
+             same step on the CPU (plain versions).  Also read, not
+             gated: the same pair-vs-probe gap with K2's plain version in
+             the model, on these weights and on weights trained with it.
+6. profile — one more main-path step under ``torch.profiler``: device
+             time by kernel, each port kernel's device time per launch,
+             and the device's idle share of the step.
+
+For a quick kernel check: ``--phases build,rng,parity``.
 
 Prints one JSON line of kernels, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when CUDA is unavailable or the port's sources are missing.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -44,12 +58,23 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 H100_BF16_FLOPS = 989e12      # dense tensor-core peak (H100 SXM data sheet)
-H100_F32_OPS = 67e12          # non-tensor float32 peak
 H100_BYTES = 3.35e12          # HBM3 bandwidth
-# CUDA-core operations per z draw (csrc/rng.cuh): 2 x mix32 (8 each), the
-# two counters (5), two uniforms (6), log, sqrt, cos and 3 multiplies,
-# counted as one each (6), plus the weight add and multiply (2).
-RNG_OPS = 35
+H100_SMS = 132
+INSNS_PER_SM_CLOCK = 4 * 32   # 4 schedulers, one warp instruction a clock
+# Operations one z needs, counted once from the z contract in
+# src/repro_torch/csrc/rng.cuh: a floor that does not move with the build.
+# Left out: int->float conversions, the log's exponent split, the cosine's
+# quadrant selection, and loop, address and memory work.
+RNG_OPS = (2           # the two counter inputs, a multiply-add each
+           + 2 * 8     # two mix32: three shift-xors and two multiplies
+           + 12        # log: 9 polynomial FMAs, f + f*f*p, + i*ln2
+           + 1         # -2 log u
+           + 5         # sqrt: rsqrt and its Newton step
+           + 8         # cos: 3 reduction FMAs, 3 polynomial, 2 to assemble
+           + 1)        # r * c
+# A bf16 K1 element at decay 1: z, x + scale*z, an unpack and half a pack.
+K1_OPS = RNG_OPS + 2 + 1.5
+CLOCK_HZ = None               # the card's maximum SM clock, set by main()
 
 MAIN_OVERRIDES = {
     "model.variant": "full", "runtime.backend": "pallas",
@@ -62,13 +87,25 @@ def log(msg):
     print(msg, flush=True)
 
 
+def smi(query, *fmt):
+    """One card's ``nvidia-smi --query-gpu`` line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader") + fmt)],
+        capture_output=True, text=True, check=True).stdout.strip(
+        ).splitlines()[0]
+
+
 def time_ms(fn, reps=5, warmup=1):
-    """Mean milliseconds of ``fn()`` on the card (CUDA events)."""
+    """Mean milliseconds of ``fn()`` on the card (CUDA events).  The
+    stream first sleeps long enough for the host to enqueue every rep of a
+    kernel, so host overhead per call does not set the pace."""
     import torch
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(CLOCK_HZ * 2e-4 * (reps + 1)))  # 0.2 ms a call
     start.record()
     for _ in range(reps):
         fn()
@@ -77,11 +114,21 @@ def time_ms(fn, reps=5, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, tensor_flops=0.0, cuda_ops=0.0):
-    """Least time (ms) for the work and what bounds it."""
-    t_bytes = nbytes / H100_BYTES
-    t_ops = max(tensor_flops / H100_BF16_FLOPS, cuda_ops / H100_F32_OPS)
-    return (max(t_bytes, t_ops) * 1e3,
+def issue_ms(instructions):
+    """Least time (ms) the SMs take to issue ``instructions`` thread
+    instructions, at the card's maximum SM clock (at 1980 MHz this is the
+    float32 peak of 67 TFLOP/s, an FMA a lane a clock)."""
+    return instructions / (H100_SMS * INSNS_PER_SM_CLOCK * CLOCK_HZ) * 1e3
+
+
+def bound(nbytes, tensor_flops=0.0, instructions=0.0):
+    """Least time (ms) for the work and what bounds it: bytes at the HBM
+    rate, or operations (tensor-core flops at the bf16 peak, or thread
+    instructions at the issue rate)."""
+    t_bytes = nbytes / H100_BYTES * 1e3
+    t_ops = max(tensor_flops / H100_BF16_FLOPS * 1e3,
+                issue_ms(instructions))
+    return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -110,7 +157,9 @@ def bf16_ulps(a, b):
 
 # ------------------------------------------------------------------ phases
 def phase_build():
-    from repro_torch.kernels import _build
+    """Build every kernel; return the SASS instructions one K1 element
+    issues in this build."""
+    from repro_torch.kernels import _build, sass
     t = time.perf_counter()
     reports = _build.build_all()
     for name, rep in reports.items():
@@ -120,9 +169,38 @@ def phase_build():
         log(f"[build] {name}: " + ("; ".join(lines) or rep.strip()))
     log(f"[build] {len(reports)} sources in "
         f"{time.perf_counter() - t:.1f} s")
+    k1 = sass.census(sass.disassemble(str(_build._target("zo_axpy"))),
+                     "zo_axpy_2d_kernelI13__nv_bfloat16E", 8)
+    log(f"[build] K1 SASS: {k1['per_element']} instructions an element "
+        f"(by pipe {k1['by_pipe']}) against {K1_OPS} operations the "
+        "function needs")
+    hmma = sass.count_ops(sass.disassemble(str(_build._target(
+        "flash_attn"))), "flash_fwd_kernelILi128", "HMMA")
+    log(f"[build] K2 SASS: flash_fwd_kernel<128> holds {hmma} HMMA "
+        "(tensor-core) instructions")
+    if hmma == 0:
+        raise SystemExit("build: flash_fwd_kernel<128> runs no tensor-core "
+                         "instruction")
+    return k1["per_element"]
 
 
-def phase_parity(cfg, eps):
+def phase_rng():
+    """r_fast/c_fast against r_ref/c_ref on all 2^24 inputs each."""
+    import torch
+    from repro_torch.kernels import zo_axpy as kzo
+    t = time.perf_counter()
+    res = kzo.counter_normal_parts_check()
+    torch.cuda.synchronize()
+    log(f"[rng] r: {res['r_mismatches']} mismatches in {res['inputs']} "
+        f"inputs (first {res['r_first']}); c: {res['c_mismatches']} in "
+        f"{res['inputs']} (first {res['c_first']}); "
+        f"{(time.perf_counter() - t) * 1e3:.1f} ms with the build")
+    if res["r_mismatches"] or res["c_mismatches"]:
+        raise SystemExit("rng: the kernels' z is not bit-identical to the "
+                         "plain versions'")
+
+
+def phase_parity(cfg, eps, k1_sass):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
     import torch.nn.functional as F
@@ -158,16 +236,26 @@ def phase_parity(cfg, eps):
         raise SystemExit(f"zo_axpy_2d: active rows differ by {ulps} bf16 ulp")
     err = (got.float() - want.float()).abs().max().item()
     n_act = int(mask.sum()) * D * Fd
-    b_ms, b_by = bound(n_act * 2 * 2, cuda_ops=n_act * RNG_OPS)
+    b_ms, b_by = bound(n_act * 2 * 2, instructions=n_act * K1_OPS)
     rows["zo_axpy_2d"] = dict(
         max_abs_err=err, tolerance="masked rows bit-equal; active <= 1 bf16 "
         f"ulp (got {ulps})",
         ms=time_ms(lambda: kzo.zo_axpy_2d_(got, mask, seed, scale, 1.0)),
         plain_ms=time_ms(lambda: kref.zo_axpy_2d_(want, mask, seed, scale,
                                                   1.0), reps=2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bytes_bound_ms=n_act * 2 * 2 / H100_BYTES * 1e3,
+        ops_bound_ms=issue_ms(n_act * K1_OPS))
+    r1 = rows["zo_axpy_2d"]
+    if k1_sass is not None:          # this build's instructions, not a bound
+        r1["sass_per_element"] = k1_sass
+        r1["issue_share"] = issue_ms(n_act * k1_sass) / r1["ms"]
     log(f"[parity] zo_axpy_2d (4, {D * Fd}) bf16: max|err| {err:.3e}, "
-        f"{ulps} ulp")
+        f"{ulps} ulp; {r1['ms']:.4f} ms, bounds: bytes "
+        f"{r1['bytes_bound_ms']:.4f} ms, operations "
+        f"{r1['ops_bound_ms']:.4f} ms ({K1_OPS} an element at "
+        f"{CLOCK_HZ / 1e6:.0f} MHz); issue share of the build's "
+        f"{k1_sass} SASS instructions an element: {r1.get('issue_share')}")
     del theta, got, want
 
     # K3: P = 2 stacked probes of the +-eps pair, both FFN shapes
@@ -193,7 +281,7 @@ def phase_parity(cfg, eps):
         if (K, N) == (D, Fd):
             b_ms, b_by = bound((x.numel() + w.numel() + got.numel()) * 2,
                                tensor_flops=2.0 * 2 * M * K * N,
-                               cuda_ops=K * N * RNG_OPS)
+                               instructions=K * N * RNG_OPS)
             rows["pmatmul_stack"] = dict(
                 max_abs_err=err,
                 tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|; P=2 "
@@ -229,7 +317,8 @@ def phase_parity(cfg, eps):
     want = fref.pmatmul(h, tok.T, w_seed, eps, True, **kw)
     err = close(got, want, "pmatmul head")
     b_ms, b_by = bound((h.numel() + tok.numel() + got.numel()) * 2,
-                       tensor_flops=2.0 * M * D * V, cuda_ops=D * V * RNG_OPS)
+                       tensor_flops=2.0 * M * D * V,
+                       instructions=D * V * RNG_OPS)
     rows["pmatmul"] = dict(
         max_abs_err=err, tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|",
         ms=time_ms(lambda: fmm.pmatmul(h, tok.T, w_seed, eps, True, **kw)),
@@ -256,14 +345,35 @@ def phase_parity(cfg, eps):
     rows["flash_attention"] = dict(
         max_abs_err=err, tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|",
         ms=time_ms(lambda: kfa.flash_attention(q, k, v, causal=True),
-                   reps=20),
+                   reps=50),
         plain_ms=time_ms(lambda: kfa.flash_attention_plain(q, k, v,
                                                            causal=True)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), reps=20))
+            qs, ks, vs, is_causal=True), reps=50))
     log(f"[parity] flash_attention ({2 * B}, {S}, {H}, 1, {dh}): "
-        f"max|err| {err:.3e}")
+        f"max|err| {err:.3e}; {rows['flash_attention']['ms']:.4f} ms, SDPA "
+        f"{rows['flash_attention']['library_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    # K2 off the main path: a long sequence, 16 query and key tiles a head
+    Bl, Sl = 4, 1024
+    q = torch.randn((Bl, Sl, H, 1, dh), generator=g, device=dev, dtype=bf)
+    k = torch.randn((Bl, Sl, H, dh), generator=g, device=dev, dtype=bf)
+    v = torch.randn((Bl, Sl, H, dh), generator=g, device=dev, dtype=bf)
+    close(kfa.flash_attention(q, k, v, causal=True),
+          kfa.flash_attention_plain(q, k, v, causal=True),
+          f"flash_attention S={Sl}")
+    qs, ks, vs = (t.reshape(Bl, Sl, H, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    rows["flash_attention"]["long_ms"] = time_ms(
+        lambda: kfa.flash_attention(q, k, v, causal=True), reps=20)
+    rows["flash_attention"]["long_library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
+        reps=20)
+    log(f"[parity] flash_attention ({Bl}, {Sl}, {H}, 1, {dh}), off the "
+        f"main path: within tolerance; "
+        f"{rows['flash_attention']['long_ms']:.4f} ms, SDPA "
+        f"{rows['flash_attention']['long_library_ms']:.4f} ms")
     del q, k, v, got, want, qs, ks, vs
     torch.cuda.empty_cache()
     return rows
@@ -321,10 +431,10 @@ def phase_train():
     return spec, cfg, hist["final_params"], launches
 
 
-def phase_check(spec, cfg, params):
-    """Virtual pair vs materialized probes on the trained weights, and a
-    small bf16 model's step on the card vs on the CPU."""
-    import numpy as np
+def probe_gap(spec, cfg, params):
+    """The virtual pair's losses (l+, l-) on ``params`` against the
+    materialized probes' (kernel K1 perturbing in place, then undoing),
+    and their relative differences."""
     import torch
     from repro_torch import fused
     from repro_torch.api import runners
@@ -348,11 +458,52 @@ def phase_check(spec, cfg, params):
         mat.append(lm.lm_loss(cfg, params, batch).item())
     zo.tree_axpy_(params, zspec, seed, eps, masks, idxs, backend="pallas")
     rel = [abs(a - b) / abs(b) for a, b in zip(pair, mat)]
+    if not all(math.isfinite(x) for x in pair + mat):
+        raise SystemExit(f"check: probe losses not finite: {pair} {mat}")
+    return pair, mat, rel
+
+
+@contextlib.contextmanager
+def plain_k2():
+    """The model's attention through K2's plain version, for a reading
+    that separates K2's rounding from the rest (the model calls
+    ``kernels.flash_attn.flash_attention``)."""
+    from repro_torch.kernels import flash_attn as kfa
+    kernel = kfa.flash_attention
+    kfa.flash_attention = kfa.flash_attention_plain
+    try:
+        yield
+    finally:
+        kfa.flash_attention = kernel
+
+
+def phase_check(spec, cfg, params):
+    """Virtual pair vs materialized probes on the trained weights, and a
+    small bf16 model's step on the card vs on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import api, fused
+    from repro_torch.core import zo
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+
+    pair, mat, rel = probe_gap(spec, cfg, params)
     log(f"[check] OPT-13B virtual pair {pair} vs materialized {mat}: "
         f"rel diff {rel}")
-    if not all(math.isfinite(x) for x in pair + mat) or max(rel) > 1e-2:
+    if max(rel) > 1e-2:
         raise SystemExit("check: virtual and materialized probe losses "
                          "differ by more than 1e-2 relative")
+    with plain_k2():                 # readings, not gated
+        pair, mat, rel = probe_gap(spec, cfg, params)
+        log(f"[check] same weights, K2's plain version in the model: "
+            f"virtual pair {pair} vs materialized {mat}: rel diff {rel}")
+        other = api.run(spec)["history"]
+        pair, mat, rel = probe_gap(spec, cfg, other["final_params"])
+        log(f"[check] weights trained with K2's plain version (losses "
+            f"{other['loss']}): virtual pair {pair} vs materialized {mat}: "
+            f"rel diff {rel}")
+        del other
+    torch.cuda.empty_cache()
 
     from repro_torch.configs import opt
     small = opt.opt_tiny(layers=2, d_model=128, vocab=512).with_(
@@ -421,6 +572,11 @@ def phase_profile(spec, cfg, params):
         raise SystemExit("profile: the trace holds no device time")
     for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile] {us / 1e3:9.3f} ms {n:6d} x  {key[:90]}")
+    for name in ("zo_axpy_2d_kernel", "flash_fwd_kernel", "pmatmul_kernel"):
+        for key, (us, n) in dev_us.items():
+            if name in key and n:
+                log(f"[profile] per launch: {us / n / 1e3:.4f} ms over {n} "
+                    f"x {key[:70]}")
 
 
 SOURCES = {
@@ -435,7 +591,7 @@ SOURCES = {
 }
 
 
-PHASES = ("build", "parity", "train", "check", "profile")
+PHASES = ("build", "rng", "parity", "train", "check", "profile")
 
 
 def main() -> int:
@@ -454,6 +610,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails in a checkout without the port)
 
+    global CLOCK_HZ
+    CLOCK_HZ = float(smi("clocks.max.sm", "nounits")) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import api
@@ -462,10 +620,11 @@ def main() -> int:
     spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
     cfg = api.derive(spec).model_cfg
     rows, launches = {}, {}
-    if "build" in phases:
-        phase_build()
+    k1_sass = phase_build() if "build" in phases else None
+    if "rng" in phases:
+        phase_rng()
     if "parity" in phases:
-        rows = phase_parity(cfg, spec.optimizer.eps)
+        rows = phase_parity(cfg, spec.optimizer.eps, k1_sass)
     if "train" in phases:
         spec, cfg, params, launches = phase_train()
     if "check" in phases:
@@ -481,15 +640,16 @@ def main() -> int:
                         **{k: r.get(k) for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "tolerance")},
-                        **{k: r[k] for k in ("inactive_ms", "dd_ms")
+                        **{k: r[k] for k in ("inactive_ms", "dd_ms",
+                                             "long_ms", "long_library_ms",
+                                             "bytes_bound_ms",
+                                             "ops_bound_ms",
+                                             "sass_per_element",
+                                             "issue_share")
                            if k in r}})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(smi)
+    print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

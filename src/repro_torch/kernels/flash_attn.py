@@ -7,10 +7,11 @@ like q.  ``q_offset`` is the absolute position of q[0]; ``k_offset`` the
 position of k[0] (negative: leading always-visible keys).
 
 On a CUDA tensor the wrapper launches ``csrc/flash_attn.cu`` (bf16,
-dh in {32, 64, 128}; any Sq/Sk, masked; GQA as an index map).  On a CPU
-tensor it runs :func:`flash_attention_plain`, the reference's chunked
-online-softmax algorithm step for step (f32 running max/sum/acc, P
-rounded to the input type before P·V).
+dh in {32, 64, 128}; any Sq/Sk, masked; GQA as an index map; both
+products on tensor cores).  On a CPU tensor it runs
+:func:`flash_attention_plain`, the reference's chunked online-softmax
+algorithm step for step (f32 running max/sum/acc, P rounded to the input
+type before P·V).
 """
 from __future__ import annotations
 
@@ -73,6 +74,13 @@ def flash_attention_plain(q, k, v, *, causal=True, q_offset=0, k_offset=0,
     return out
 
 
+def _aligned(t):
+    """Contiguous, based on a 16-byte boundary: the kernel moves rows as
+    16-byte chunks."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(q, k, v, *, causal, q_offset, k_offset):
     B, Sq, KV, G, dh = q.shape
     Sk = k.shape[1]
@@ -83,7 +91,7 @@ def _launch(q, k, v, *, causal, q_offset, k_offset):
     if k.shape != (B, Sk, KV, dh) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
                          f"not match q {tuple(q.shape)}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _build.function(
         "flash_attn", "flash_fwd_launch",

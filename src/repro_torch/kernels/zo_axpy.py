@@ -7,10 +7,14 @@ rows where ``mask``, untouched elsewhere.  The reference donates and
 aliases the buffer (``input_output_aliases``); the port writes into the
 parameter's own storage.
 
-On a CUDA tensor the wrapper launches ``csrc/zo_axpy.cu`` (memory-bound
-on the H100: one read and one write per active element, z made in
-registers, masked-off rows skipped before any work).  On a CPU tensor it
-runs the plain version, ``kernels/ref.py::zo_axpy_2d_``.
+On a CUDA tensor the wrapper launches ``csrc/zo_axpy.cu`` (bound on the
+H100 by the instructions of z, which it makes in registers; 16-byte
+loads and stores; masked-off rows skipped before any work).  On a CPU
+tensor it runs the plain version, ``kernels/ref.py::zo_axpy_2d_``.
+
+:func:`counter_normal_parts_check` runs ``csrc/rng_check.cu``: the
+kernels' float part of z against the plain versions' expressions on
+every one of its 2^24 inputs, on the card.
 """
 from __future__ import annotations
 
@@ -58,3 +62,25 @@ def zo_axpy_2d_(theta, mask, seed: int, scale, decay=1.0):
     if theta.device.type == "cuda":
         return _launch(theta, mask, seed, scale, decay)
     return kref.zo_axpy_2d_(theta, mask, seed, scale, decay)
+
+
+RNG_INPUTS = 1 << 24
+
+
+def counter_normal_parts_check(device="cuda") -> dict:
+    """Compare, on the card, ``r_fast``/``c_fast`` (the kernels' z) with
+    ``r_ref``/``c_ref`` (``sqrtf(-2 logf(u))``, ``cosf(2 pi u)``) on all
+    2^24 values of u; return the mismatch counts and the first
+    mismatching input of each (None where there is none)."""
+    out = torch.tensor([0, 0, RNG_INPUTS, RNG_INPUTS], dtype=torch.int64,
+                       device=device)
+    fn = _build.function("rng_check", "rng_check_launch",
+                         [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(out.device):
+        err = fn(out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rng_check")
+    r_bad, c_bad, r_first, c_first = out.tolist()
+    return {"inputs": RNG_INPUTS, "r_mismatches": r_bad,
+            "c_mismatches": c_bad,
+            "r_first": None if r_first == RNG_INPUTS else r_first,
+            "c_first": None if c_first == RNG_INPUTS else c_first}

@@ -67,6 +67,38 @@ def test_zo_axpy_kernel(dev, dtype):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("L,n,offset", [
+    (3, 4096, 3),       # row bases 6 bytes past a 16-byte boundary
+    (4, 7, 1),          # rows shorter than one vector: head and tail only
+    (1, 12345, 5),      # an unstacked leaf as one row, odd n
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zo_axpy_kernel_layouts(dev, dtype, L, n, offset):
+    """Misaligned row bases and odd n take the scalar head and tail."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn((L * n + offset,), generator=g, device=dev).to(dtype)
+    theta = buf[offset:].view(L, n)
+    mask = torch.tensor([i % 2 == 0 for i in range(L)])
+    want = theta.clone()
+    got = buf.clone()[offset:].view(L, n)    # same misalignment as theta
+    kzo.zo_axpy_2d_(got, mask, 0xABCDEF, -3e-2, 1.0)
+    kref.zo_axpy_2d_(want, mask, 0xABCDEF, -3e-2, 1.0)
+    m = mask.to(dev)
+    assert torch.equal(got[~m], theta[~m])
+    if dtype == torch.bfloat16:
+        assert _ulps(got[m], want[m]) <= 1
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_counter_normal_parts_exhaustive(dev):
+    """The kernels' r and c equal the plain versions' sqrtf(-2 logf(u))
+    and cosf(2 pi u) bit for bit on every one of the 2^24 values of u."""
+    res = kzo.counter_normal_parts_check(dev)
+    assert res["inputs"] == 1 << 24
+    assert (res["r_mismatches"], res["c_mismatches"]) == (0, 0), res
+
+
 @pytest.mark.parametrize("q_offset,k_offset,Sk,G,dh", [
     (0, 0, 63, 1, 128), (8, 0, 90, 2, 64), (0, -5, 40, 1, 32)])
 def test_flash_kernel(dev, q_offset, k_offset, Sk, G, dh):
@@ -78,6 +110,29 @@ def test_flash_kernel(dev, q_offset, k_offset, Sk, G, dh):
     kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset)
     _close(kfa.flash_attention(q, k, v, **kw),
            kfa.flash_attention_plain(q, k, v, k_chunk=64, **kw))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,KV,G,dh,q_offset,k_offset,causal", [
+    (2, 130, 130, 2, 1, 64, 0, 0, True),     # 3 query and 3 key tiles
+    (2, 45, 100, 2, 1, 128, 0, 0, False),    # non-causal, 2 key tiles
+    (2, 63, 63, 3, 2, 128, 0, 0, True),      # GQA, G = 2 at dh = 128
+    (4, 1, 63, 2, 1, 128, 62, 0, True),      # one query at position 62
+    (2, 37, 50, 2, 1, 32, 0, 40, True),      # no row sees a key: out = 0
+])
+def test_flash_kernel_paths(dev, B, Sq, Sk, KV, G, dh, q_offset, k_offset,
+                            causal):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((B, Sq, KV, G, dh), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, Sk, KV, dh), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, Sk, KV, dh), generator=g, device=dev).bfloat16()
+    kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset)
+    kfa.counter.launches = 0
+    got = kfa.flash_attention(q, k, v, **kw)
+    assert kfa.counter.launches == 1
+    want = kfa.flash_attention_plain(q, k, v, k_chunk=64, **kw)
+    _close(got, want)
+    if q_offset + Sq - 1 < k_offset:
+        assert not got.float().abs().any()
 
 
 @pytest.mark.parametrize("M,K,N,trans,route", [

@@ -70,3 +70,23 @@ def test_rows_decorrelated_and_seeded():
     b = tref.leaf_normal_nd(2, (2, 1000))
     assert torch.all(a != b)
     assert torch.equal(a, tref.leaf_normal_nd(1, (2, 1000)))
+
+
+def test_uniform01_takes_every_grid_value_once():
+    """The premise of the kernels' exhaustive z check: uniform01 maps the
+    2^24 values of ``bits >> 8`` to exactly (k + 1) 2^-24, 2^24 distinct
+    floats in (0, 1], none 0."""
+    m = torch.arange(1 << 24, dtype=torch.int64)
+    u = trng._uniform01(m << 8)
+    assert u.dtype == torch.float32
+    assert torch.equal(u.double(), (m + 1).double() * 2.0 ** -24)
+    assert bool((u[1:] > u[:-1]).all()) and u[0].item() > 0
+    assert u[-1].item() == 1.0
+
+
+def test_uniform01_matches_reference():
+    bits = np.concatenate([_words(1 << 16, 5), np.array(
+        [0, 255, 256, 2 ** 32 - 1, 2 ** 31, 2 ** 31 - 1], dtype=np.uint32)])
+    want = np.asarray(jrng._uniform01(jnp.asarray(bits)))
+    got = trng._uniform01(torch.tensor(bits.astype(np.int64))).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
