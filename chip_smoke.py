@@ -39,6 +39,25 @@ of which fails the run (non-zero exit) when it fails:
 6. profile — one more main-path step under ``torch.profiler``: device
              time by kernel, each port kernel's device time per launch,
              and the device's idle share of the step.
+7. estimators — the other ZO estimators on OPT-13B at full width and
+             depth (the weights of ``train``, or built once from a seed),
+             through ``api.run(spec, params=...)``: ``fzoo-opt13b-q16``
+             (one_sided, q = 16 probes stacked in one forward, K3 at
+             P = 16), ``averaged`` at q = 2 and ``importance`` over
+             two_point, with the main path's overrides.  Step seconds,
+             peak memory and launches by kernel; the launches must equal
+             what ``costs.step_counts`` and K3's probe grouping imply.
+8. momentum — ``zo_momentum`` on the same weights, materialized, K1
+             sweeps (probe, restore and the K history sweeps), 3 steps.
+9. fo      — K2's backward against autograd through its plain version at
+             the main shape; then first-order training: ``fo-opt13b`` with
+             SGD at full width and depth on the same weights, and the
+             preset's AdamW at full width and 16 layers (the 40-layer
+             AdamW state does not fit in 80 GB), peak memory beside the
+             ZO step's.
+10. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+             against 2 steps, a checkpoint and a resumed run of 2 more;
+             the parameters must match bit for bit.
 
 For a quick kernel check: ``--phases build,rng,parity``.
 
@@ -48,9 +67,12 @@ when CUDA is unavailable or the port's sources are missing.
 """
 import argparse
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -132,13 +154,13 @@ def bound(nbytes, tensor_flops=0.0, instructions=0.0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def close(got, want, name):
-    """Per element |got - want| <= 2^-7 |want| + 2^-8 max|want|: one
-    bf16 rounding step of the output plus a floor near zero."""
+def close(got, want, name, steps=1):
+    """Per element |got - want| <= steps * (2^-7 |want| + 2^-8 max|want|):
+    ``steps`` bf16 rounding steps of the output plus a floor near zero."""
     import torch
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    tol = 2.0 ** -7 * want.abs() + 2.0 ** -8 * want.abs().max()
+    tol = steps * (2.0 ** -7 * want.abs() + 2.0 ** -8 * want.abs().max())
     if not bool(torch.isfinite(got).all()) or not bool((err <= tol).all()):
         raise SystemExit(f"{name}: kernel disagrees with its plain version "
                          f"(max abs err {err.max().item():.3e})")
@@ -285,7 +307,7 @@ def phase_parity(cfg, eps, k1_sass):
             rows["pmatmul_stack"] = dict(
                 max_abs_err=err,
                 tolerance="|err| <= 2^-7|plain| + 2^-8 max|plain|; P=2 "
-                "bit-equal to two pmatmul calls",
+                "and P=16 bit-equal to P pmatmul calls",
                 ms=time_ms(lambda: fmm.pmatmul_stack(x, w, *args)),
                 plain_ms=time_ms(lambda: fref.pmatmul_stack(x, w, *args),
                                  reps=2),
@@ -308,6 +330,50 @@ def phase_parity(cfg, eps, k1_sass):
         f"(D, d_ff) {rows['pmatmul_stack']['inactive_ms']:.3f}, active "
         f"(D, D) {rows['pmatmul_stack']['dd_ms']:.3f}")
     del x, w
+
+    # K3 at P = 16: one_sided's stacked probes (fzoo-opt13b-q16), each
+    # with its own seed; 4 of 16 active, as LeZO at sparsity 0.75 makes
+    # a layer active for about a quarter of the probes
+    P16 = 16
+    act16 = tuple(p in (1, 6, 7, 12) for p in range(P16))
+    seeds16 = tuple(w_seed + 101 * p for p in range(P16))
+    args16 = (seeds16, (eps,) * P16, act16)
+    n_groups = len(fmm.probe_groups(act16))
+    r3 = rows["pmatmul_stack"]
+    for K, N, tag in ((D, Fd, "p16"), (D, D, "p16_dd")):
+        x = torch.randn((P16, M, K), generator=g, device=dev, dtype=bf)
+        w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * K ** -0.5
+        fmm.stack_counter.launches = 0
+        got = fmm.pmatmul_stack(x, w, *args16)
+        n = fmm.stack_counter.launches
+        if n != n_groups:
+            raise SystemExit(f"pmatmul_stack P = 16: {n} launches, want "
+                             f"{n_groups} groups")
+        for p in range(P16):
+            one = fmm.pmatmul(x[p], w, seeds16[p], eps, act16[p])
+            if not torch.equal(one.view(torch.int16), got[p].view(
+                    torch.int16)):
+                raise SystemExit(f"pmatmul_stack at P = 16 is not bit-equal "
+                                 f"to 16 pmatmul calls (probe {p})")
+        err = close(got, fref.pmatmul_stack(x, w, *args16),
+                    f"pmatmul_stack P = 16 ({K}, {N})")
+        b_ms, b_by = bound((x.numel() + w.numel() + got.numel()) * 2,
+                           tensor_flops=2.0 * P16 * M * K * N,
+                           instructions=sum(act16) * K * N * RNG_OPS)
+        r3[f"{tag}_ms"] = time_ms(lambda: fmm.pmatmul_stack(x, w, *args16))
+        r3[f"{tag}_bound_ms"], r3[f"{tag}_bound_by"] = b_ms, b_by
+        r3[f"{tag}_library_ms"] = time_ms(lambda: torch.matmul(x, w))
+        if tag == "p16":
+            r3["p16_max_abs_err"] = err
+            r3["p16_plain_ms"] = time_ms(
+                lambda: fref.pmatmul_stack(x, w, *args16), reps=1)
+        log(f"[parity] pmatmul_stack P = 16 x ({P16}, {M}, {K}) @ W ({K}, "
+            f"{N}), {sum(act16)} active, {n_groups} launches: max|err| "
+            f"{err:.3e}; == 16 x pmatmul bitwise; {r3[tag + '_ms']:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}), torch.matmul "
+            f"{r3[tag + '_library_ms']:.3f} ms")
+        del x, w, got
+    torch.cuda.empty_cache()
 
     # K4: the tied head, embed/tok read through trans counters
     tok = torch.randn((V, D), generator=g, device=dev, dtype=bf) * 0.02
@@ -531,9 +597,10 @@ def phase_check(spec, cfg, params):
                          "the CPU's by more than 1e-2 relative")
 
 
-def phase_profile(spec, cfg, params):
-    """One more main-path step under ``torch.profiler``: device time by
-    kernel and the device's idle share of the step's wall time."""
+def phase_profile(spec, cfg, params, tag="profile"):
+    """One more step of ``spec`` (the main path's by default) under
+    ``torch.profiler``: device time by kernel and the device's idle
+    share of the step's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import estimators
@@ -546,16 +613,16 @@ def phase_profile(spec, cfg, params):
     data = synthetic.make_dataset(d.task, 64)
     batch = {k: torch.as_tensor(data[k][:spec.run.batch_size], device="cuda")
              for k in ("tokens", "labels", "loss_mask")}
-    step = estimators.make_step(
+    step, init = estimators.make_step(
         lambda p, b, perturb=None: lm.lm_loss(cfg, p, b, perturb=perturb),
         zo.build_spec(params, lm.zo_group_fn), d.est_cfg)
     base = rng.fold_py(spec.run.seed, 0xC0FFEE)
-    step(params, batch, spec.run.steps, base)            # warm
+    step(params, init(), batch, spec.run.steps, base)    # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(params, batch, spec.run.steps + 1, base)
+        step(params, init(), batch, spec.run.steps + 1, base)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     dev_us = {}                      # device kernels only: an aten op's
@@ -566,17 +633,231 @@ def phase_profile(spec, cfg, params):
                 us = e.self_cuda_time_total
             dev_us[e.key] = (us, e.count)
     busy = sum(us for us, _ in dev_us.values()) / 1e6
-    log(f"[profile] step wall {wall:.3f} s, device busy {busy:.3f} s, "
+    log(f"[{tag}] step wall {wall:.3f} s, device busy {busy:.3f} s, "
         f"idle share {max(0.0, 1 - busy / wall):.3f}")
     if busy == 0:
-        raise SystemExit("profile: the trace holds no device time")
+        raise SystemExit(f"{tag}: the trace holds no device time")
     for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[profile] {us / 1e3:9.3f} ms {n:6d} x  {key[:90]}")
+        log(f"[{tag}] {us / 1e3:9.3f} ms {n:6d} x  {key[:90]}")
     for name in ("zo_axpy_2d_kernel", "flash_fwd_kernel", "pmatmul_kernel"):
         for key, (us, n) in dev_us.items():
             if name in key and n:
-                log(f"[profile] per launch: {us / n / 1e3:.4f} ms over {n} "
+                log(f"[{tag}] per launch: {us / n / 1e3:.4f} ms over {n} "
                     f"x {key[:70]}")
+
+
+def expected_launches(spec, params, steps):
+    """Launches by kernel that ``steps`` steps of ``spec`` must make,
+    from ``costs.step_counts`` and, for stacked one_sided probes, K3's
+    probe groups of each layer's active probes (``fmm.probe_groups``).
+    ZO modes here run virtual and paired, momentum materialized."""
+    from repro_torch import api, estimators
+    from repro_torch.core import rng, zo
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.models import lm
+
+    d = api.derive(spec)
+    e, L = d.est_cfg, d.model_cfg.num_layers
+    zspec = zo.build_spec(params, lm.zo_group_fn)
+    leaves = len(zspec.paths)
+    base = rng.fold_py(spec.run.seed, 0xC0FFEE)
+    mode = spec.optimizer.mode
+    n = {"zo_axpy_2d": 0, "flash_attention": 0, "pmatmul_stack": 0,
+         "pmatmul": 0}
+    for t in range(steps):
+        if mode == "fo":
+            n["flash_attention"] += L
+            continue
+        if mode == "zo_momentum":   # probe, -2 eps, restore, t + 1 <= K
+            n["zo_axpy_2d"] += leaves * (3 + min(8, t + 1))
+            n["flash_attention"] += 2 * L
+            continue
+        assert e.forward_backend == "virtual" and e.paired_probes
+        est = estimators.build_estimator(zspec, e)
+        n["zo_axpy_2d"] += leaves * est.step_counts()["axpy_sweeps"]
+        inner = e.inner if e.name == "importance" else e.name
+        if inner in ("two_point", "averaged"):     # one paired forward each
+            pairs = 1 if inner == "two_point" else e.q
+            n["flash_attention"] += L * pairs
+            n["pmatmul_stack"] += 6 * L * pairs
+            n["pmatmul"] += 2 * pairs
+            continue
+        seeds = estimators.direction_seeds(rng.fold_py(base, t), e.q)
+        masks = [est.select(s)[0]["s0.b0"].tolist() for s in seeds]
+        chunk = e.q_chunk if 0 < e.q_chunk < e.q else e.q
+        n["flash_attention"] += L * (1 + -(-e.q // chunk))  # + baseline
+        n["pmatmul"] += e.q
+        for c0 in range(0, e.q, chunk):
+            for layer in range(L):
+                act = [m[layer] for m in masks[c0:c0 + chunk]]
+                n["pmatmul_stack"] += 6 * (
+                    1 if len(act) <= 2 else len(fmm.probe_groups(act)))
+    return n
+
+
+def run_counted(tag, spec, params=None, trainer=None):
+    """One training run (``api.run``, or ``trainer.train()``) with the
+    launch counters zeroed just before and read just after; logs and
+    returns (history, launches, peak GiB)."""
+    import torch
+    from repro_torch import api
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()                     # what an earlier run left is freed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    hist = (trainer.train() if trainer is not None
+            else api.run(spec, params=params)["history"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {n: c.launches for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    secs = ", ".join(f"{x:.3f}" for x in hist["step_seconds"])
+    log(f"[{tag}] losses {hist['loss']}; step seconds [{secs}]; peak memory "
+        f"{peak:.2f} GiB; {wall:.1f} s in all; launches {launches}")
+    losses = hist["loss"]
+    if len(losses) != spec.run.steps or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{tag}: losses not finite / missing: {losses}")
+    return hist, launches, peak
+
+
+def check_launches(tag, spec, params, launches):
+    want = expected_launches(spec, params, spec.run.steps)
+    if launches != want:
+        raise SystemExit(f"{tag}: launches {launches} != expected {want}")
+
+
+def full_params(hold, cfg):
+    """OPT-13B weights at full width and depth, built once: the ``train``
+    phase's, or random from a seed."""
+    import torch
+    from repro_torch.models import lm
+    if "params" not in hold:
+        hold["params"] = lm.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return hold["params"]
+
+
+def phase_estimators(hold, cfg):
+    from repro_torch import api
+    params = full_params(hold, cfg)
+    for tag, name, ov in (
+            ("one_sided q=16", "fzoo-opt13b-q16", {"run.steps": 2}),
+            ("averaged q=2", "lezo-opt13b",
+             {"estimator.name": "averaged", "estimator.q": 2,
+              "run.steps": 3}),
+            ("importance", "lezo-opt13b",
+             {"estimator.name": "importance", "run.steps": 3})):
+        spec = api.with_overrides(api.preset(name), {**MAIN_OVERRIDES, **ov})
+        hist, launches, peak = run_counted(f"estimators {tag}", spec, params)
+        check_launches(f"estimators {tag}", spec, params, launches)
+        if name == "fzoo-opt13b-q16":
+            phase_profile(spec, cfg, params, tag="profile one_sided q=16")
+
+
+def phase_momentum(hold, cfg):
+    from repro_torch import api
+    params = full_params(hold, cfg)
+    spec = api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, "optimizer.mode": "zo_momentum",
+        "runtime.forward_backend": "materialized", "run.steps": 3})
+    hist, launches, peak = run_counted("momentum", spec, params)
+    check_launches("momentum", spec, params, launches)
+
+
+def phase_fo(hold, cfg):
+    """K2's backward on the card, then FO-SGD at full depth and FO-AdamW
+    at 16 layers, each with its peak memory."""
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.train.trainer import Trainer
+
+    g = torch.Generator(device="cuda").manual_seed(99)
+    shapes = [(32, 63, cfg.n_heads, 1, cfg.head_dim)] + [
+        (32, 63, cfg.n_heads, cfg.head_dim)] * 2
+    q, k, v = (torch.randn(s, generator=g, device="cuda").bfloat16()
+               for s in shapes)
+    dout = torch.randn(shapes[0], generator=g, device="cuda").bfloat16()
+    grads = []
+    for fn in (kfa.flash_attention, kfa.flash_attention_plain):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*ins, causal=True).backward(dout)
+        grads.append([t.grad for t in ins])
+    errs = [close(a, b, f"flash backward d{n}", steps=2)
+            for a, b, n in zip(*grads, "qkv")]
+    log(f"[fo] K2 backward {shapes[0]} against autograd through the plain "
+        f"version: max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+        f"{errs[2]:.3e} (tolerance: 2 bf16 steps)")
+    del q, k, v, dout, grads
+
+    fo_overrides = {"model.variant": "full", "run.steps": 2,
+                    "run.log_every": 1, "run.eval_every": 0}
+    spec = api.with_overrides(api.preset("fo-opt13b"), {
+        **fo_overrides, "optimizer.fo_optimizer": "sgd"})
+    params = full_params(hold, cfg)
+    hist, launches, peak = run_counted("fo sgd 40 layers", spec, params)
+    check_launches("fo sgd", spec, params, launches)
+    del params, hist
+    hold.pop("params")                 # frees the 40-layer weights
+    spec = api.with_overrides(api.preset("fo-opt13b"), fo_overrides)
+    d = api.derive(spec)
+    cut = dataclasses.replace(d.model_cfg, stages=(dataclasses.replace(
+        d.model_cfg.stages[0], repeat=16),))
+    log(f"[fo] AdamW cut to {cut.num_layers} of {d.model_cfg.num_layers} "
+        "layers at full width: params, grads and two moments of 40 layers "
+        "(4 x 25.7 GB) exceed the card's 80 GB")
+    trainer = Trainer(cut, d.task, d.tcfg, d.est_cfg, fo_cfg=d.fo_cfg,
+                      _spec=spec, _derived=d)
+    hist, launches, peak = run_counted("fo adamw 16 layers", spec,
+                                       trainer=trainer)
+    if launches != {"zo_axpy_2d": 0, "flash_attention": 16 * 2,
+                    "pmatmul_stack": 0, "pmatmul": 0}:
+        raise SystemExit(f"fo adamw: launches {launches}")
+    del trainer, hist
+    torch.cuda.empty_cache()
+
+
+def phase_resume():
+    """bench variant in bf16 on the card: 4 steps against 2 + checkpoint
+    + resumed 2; parameters bit for bit."""
+    import torch
+    from repro_torch import api
+    from repro_torch.models import lm
+
+    spec = api.with_overrides(api.preset("bench-smoke"), {
+        "runtime.backend": "pallas", "runtime.forward_backend": "virtual",
+        "run.steps": 4, "run.log_every": 1, "run.eval_every": 0})
+    cfg = api.derive(spec).model_cfg.with_(dtype="bfloat16")
+
+    def fresh(seed):
+        return lm.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(seed), "cuda")
+
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_resume")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        ref = api.run(spec, params=fresh(11))["history"]
+        api.run(api.with_overrides(spec, {
+            "run.steps": 2, "run.ckpt_dir": ckdir, "run.ckpt_every": 2}),
+            params=fresh(11))
+        res = api.run(api.with_overrides(spec, {"run.ckpt_dir": ckdir}),
+                      params=fresh(12))["history"]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    same = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+               for a, b in zip(ref["final_params"].parameters(),
+                               res["final_params"].parameters()))
+    log(f"[resume] bench bf16: uninterrupted losses {ref['loss']}, resumed "
+        f"at step {res['step'][0]} {res['loss']}; params bit-equal: {same}")
+    if (not same or res["step"][0] != 2
+            or res["loss"] != ref["loss"][2:]):
+        raise SystemExit("resume: the resumed run is not the uninterrupted "
+                         "run bit for bit")
 
 
 SOURCES = {
@@ -591,7 +872,8 @@ SOURCES = {
 }
 
 
-PHASES = ("build", "rng", "parity", "train", "check", "profile")
+PHASES = ("build", "rng", "parity", "train", "check", "profile",
+          "estimators", "momentum", "fo", "resume")
 
 
 def main() -> int:
@@ -625,12 +907,22 @@ def main() -> int:
         phase_rng()
     if "parity" in phases:
         rows = phase_parity(cfg, spec.optimizer.eps, k1_sass)
+    hold = {}                        # the full-size weights, built once
     if "train" in phases:
-        spec, cfg, params, launches = phase_train()
+        spec, cfg, hold["params"], launches = phase_train()
     if "check" in phases:
-        phase_check(spec, cfg, params)
+        phase_check(spec, cfg, hold["params"])
     if "profile" in phases:
-        phase_profile(spec, cfg, params)
+        phase_profile(spec, cfg, hold["params"])
+    if "estimators" in phases:
+        phase_estimators(hold, cfg)
+    if "momentum" in phases:
+        phase_momentum(hold, cfg)
+    if "fo" in phases:
+        phase_fo(hold, cfg)
+    hold.clear()
+    if "resume" in phases:
+        phase_resume()
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows.get(name, {})
@@ -640,13 +932,9 @@ def main() -> int:
                         **{k: r.get(k) for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "tolerance")},
-                        **{k: r[k] for k in ("inactive_ms", "dd_ms",
-                                             "long_ms", "long_library_ms",
-                                             "bytes_bound_ms",
-                                             "ops_bound_ms",
-                                             "sass_per_element",
-                                             "issue_share")
-                           if k in r}})
+                        **{k: v for k, v in r.items() if k not in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "tolerance")}})
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

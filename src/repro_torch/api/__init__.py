@@ -14,15 +14,16 @@ from repro_torch.api.presets import PRESETS
 from repro_torch.api.runners import Derived, derive, run
 from repro_torch.api.spec import (Experiment, Estimator, Model, Optimizer,
                                   Run, Runtime, Serving, SpecError, Swarm,
-                                  Task, Telemetry, from_dict, from_json,
-                                  to_dict, to_json, with_overrides)
+                                  Task, Telemetry, check_resume_spec,
+                                  from_dict, from_json, to_dict, to_json,
+                                  with_overrides)
 from repro_torch.api.validate import validate
 
 __all__ = ["Derived", "Estimator", "Experiment", "Model", "Optimizer",
            "PRESETS", "Run", "Runtime", "Serving", "SpecError", "Swarm",
-           "Task", "Telemetry", "derive", "from_dict", "from_json",
-           "preset", "presets", "run", "to_dict", "to_json", "validate",
-           "with_overrides"]
+           "Task", "Telemetry", "check_resume_spec", "derive",
+           "from_dict", "from_json", "preset", "presets", "run", "to_dict",
+           "to_json", "validate", "with_overrides"]
 
 
 def preset(name: str) -> Experiment:

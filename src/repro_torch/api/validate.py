@@ -1,17 +1,21 @@
 """Spec validation of the port (counterpart of ``repro/api/validate.py``).
 
-Accepts exactly what this slice of the port runs: ZO training of the OPT
-family with the two-point estimator on the synthetic task, any axpy
-backend, any forward backend, single process.  Everything else raises
-:class:`SpecError` naming the field and saying "not yet ported", before
-any parameter is allocated.
+Accepts what the port runs: training of the OPT family on the synthetic
+task, single process, in every optimizer mode (``zo`` with any
+estimator, ``zo_momentum``, ``fo``), any axpy backend, any forward
+backend, the loss-shard quorum and checkpoint/resume, under the
+reference's rules.  Registry tasks, PEFT, meshes, the swarm and
+telemetry raise :class:`SpecError` naming the field and saying "not yet
+ported", before any parameter is allocated.
 """
 from repro_torch import configs
 from repro_torch.api.spec import Experiment, SpecError
 from repro_torch.estimators import costs
 
+MODES = ("zo", "zo_momentum", "fo")
 POLICIES = ("stratified", "uniform")
 BACKENDS = ("dense", "scan", "gather", "pallas")
+FO_OPTIMIZERS = ("sgd", "momentum", "adamw")
 SCHEDULES = ("constant",)
 
 
@@ -57,7 +61,8 @@ def validate(spec: Experiment):
     _require(0.0 < t.signal_rate <= 1.0, "task.signal_rate",
              f"must be in (0, 1], got {t.signal_rate}")
 
-    _ported(o.mode == "zo", "optimizer.mode", f"mode {o.mode!r}")
+    _require(o.mode in MODES, "optimizer.mode",
+             f"unknown mode {o.mode!r}; pick from {MODES}")
     _require(o.eps > 0, "optimizer.eps", f"must be > 0, got {o.eps}")
     _require(o.lr >= 0, "optimizer.lr", f"must be >= 0, got {o.lr}")
     _require(o.schedule in SCHEDULES, "optimizer.schedule",
@@ -71,8 +76,23 @@ def validate(spec: Experiment):
                  f"must be in [0, {mcfg.num_layers}), got {o.n_drop}")
     _require(o.policy in POLICIES, "optimizer.policy",
              f"unknown policy {o.policy!r}; pick from {POLICIES}")
+    _require(o.fo_optimizer in FO_OPTIMIZERS, "optimizer.fo_optimizer",
+             f"unknown FO optimizer {o.fo_optimizer!r}; pick from "
+             f"{FO_OPTIMIZERS}")
+    if o.grad_clip is not None:
+        _require(o.grad_clip > 0, "optimizer.grad_clip",
+                 f"must be > 0 or none, got {o.grad_clip}")
 
-    _ported(e.name == "two_point", "estimator.name", f"estimator {e.name!r}")
+    _require(e.name in costs.ESTIMATORS, "estimator.name",
+             f"unknown estimator {e.name!r}; pick from {costs.ESTIMATORS}")
+    _require(e.q >= 1, "estimator.q", f"must be >= 1, got {e.q}")
+    _require(e.q_chunk >= 0, "estimator.q_chunk",
+             f"must be >= 0 (0 = one stacked forward), got {e.q_chunk}")
+    _require(e.inner in costs.ESTIMATORS and e.inner != "importance",
+             "estimator.inner",
+             f"must be a non-importance estimator, got {e.inner!r}")
+    _require(0.0 < e.importance_decay <= 1.0, "estimator.importance_decay",
+             f"must be in (0, 1], got {e.importance_decay}")
 
     _require(rt.backend in BACKENDS, "runtime.backend",
              f"unknown kernel backend {rt.backend!r}; pick from {BACKENDS}")
@@ -81,12 +101,17 @@ def validate(spec: Experiment):
              f"unknown forward_backend {rt.forward_backend!r}; pick from "
              f"{costs.FORWARD_BACKENDS}")
     _ported(rt.peft is None, "runtime.peft", f"PEFT {rt.peft!r}")
-    _ported(rt.n_loss_shards == 1, "runtime.n_loss_shards",
-            "the loss-shard quorum simulation")
     _ported(rt.mesh == "single", "runtime.mesh", f"mesh {rt.mesh!r}")
+    _require(rt.n_loss_shards >= 1, "runtime.n_loss_shards",
+             f"must be >= 1, got {rt.n_loss_shards}")
+    _require(0.0 < rt.quorum <= 1.0, "runtime.quorum",
+             f"must be in (0, 1], got {rt.quorum}")
     if rt.backend == "gather":
         _require(o.policy == "stratified", "optimizer.policy",
                  "runtime.backend='gather' requires the stratified policy")
+    if rt.forward_backend != "materialized":
+        _require(o.mode == "zo", "optimizer.mode",
+                 "forward_backend='virtual' requires mode='zo'")
 
     _ported(sw.workers == 0 and sw.n_shards == 0, "swarm.workers",
             "the multi-process swarm")
@@ -96,20 +121,31 @@ def validate(spec: Experiment):
     _require(r.steps >= 1, "run.steps", f"must be >= 1, got {r.steps}")
     _require(r.batch_size >= 1, "run.batch_size",
              f"must be >= 1, got {r.batch_size}")
+    if rt.n_loss_shards > 1:
+        _require(r.batch_size % rt.n_loss_shards == 0, "run.batch_size",
+                 f"must divide into runtime.n_loss_shards="
+                 f"{rt.n_loss_shards} loss shards, got {r.batch_size}")
     if r.eval_every is not None:
         _require(r.eval_every >= 0, "run.eval_every",
                  f"must be >= 0, got {r.eval_every}")
     _require(r.log_every >= 0, "run.log_every",
              f"must be >= 0, got {r.log_every}")
-    _ported(r.ckpt_dir is None and r.ckpt_every == 0, "run.ckpt_dir",
-            "checkpointing")
+    _require(r.ckpt_every >= 0, "run.ckpt_every",
+             f"must be >= 0, got {r.ckpt_every}")
+    if r.ckpt_every > 0:
+        _require(r.ckpt_dir is not None, "run.ckpt_dir",
+                 "required when run.ckpt_every > 0")
+    _require(r.keep_ckpts >= 1, "run.keep_ckpts",
+             f"must be >= 1, got {r.keep_ckpts}")
     return mcfg
 
 
 def n_drop_for(spec: Experiment, num_layers: int) -> int:
-    """The LeZO drop count: explicit ``optimizer.n_drop`` wins, else
-    ``int(sparsity * L)``."""
+    """The LeZO drop count: 0 for first-order training; explicit
+    ``optimizer.n_drop`` wins, else ``int(sparsity * L)``."""
     o = spec.optimizer
+    if o.mode == "fo":
+        return 0
     if o.n_drop is not None:
         return o.n_drop
     return int(o.sparsity * num_layers)

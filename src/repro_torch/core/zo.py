@@ -9,12 +9,16 @@ z streams keyed by them are the reference's.
 
 Selection runs on the host: masks are (L_g,) CPU bool tensors and
 active index vectors CPU int64 tensors, pure functions of the step seed.
+The health scalars (``active_param_count``) are numpy float32 values
+computed in the reference's op order.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import rng, selection
@@ -80,6 +84,18 @@ def build_spec(params, group_fn: Callable[[str], Optional[str]]) -> ZOSpec:
 
 
 # ----------------------------------------------------------- selection
+def _group_rank_bits(seed: int, salt: str, g: str, L: int) -> torch.Tensor:
+    """Seeded per-layer ranking bits for group ``g`` — the one hashing
+    scheme shared by the uniform and weighted stratified policies."""
+    return selection.rank_bits(rng.fold_py(seed, rng.leaf_uid(salt + g)), L)
+
+
+def _mask_from_active(act: torch.Tensor, L: int) -> torch.Tensor:
+    m = torch.zeros((L,), dtype=torch.bool)
+    m[act] = True
+    return m
+
+
 def stratified_select(spec: ZOSpec, seed: int, n_drop: int):
     """Per-group masks + active index vectors (ascending).
 
@@ -90,13 +106,38 @@ def stratified_select(spec: ZOSpec, seed: int, n_drop: int):
     masks, idxs = {}, {}
     n_active = 0
     for g, (_, L) in spec.slices.items():
-        gseed = rng.fold_py(seed, rng.leaf_uid("sel/" + g))
-        order = torch.argsort(selection.rank_bits(gseed, L))
+        order = torch.argsort(_group_rank_bits(seed, "sel/", g, L))
         act = torch.sort(order[quotas[g]:]).values
-        m = torch.zeros((L,), dtype=torch.bool)
-        m[act] = True
-        masks[g], idxs[g] = m, act
+        masks[g], idxs[g] = _mask_from_active(act, L), act
         n_active += L - quotas[g]
+    return masks, idxs, n_active
+
+
+def stratified_select_weighted(spec: ZOSpec, seed: int, n_drop: int,
+                               weights):
+    """Importance-weighted LeZO selection with static per-group quotas.
+
+    ``weights`` (num_layers,) >= 0, globally indexed like ZOSpec.slices.
+    Gumbel top-k by log-weight within each group, in float32 as the
+    reference computes it; the per-group active count is the static
+    ``L_g - quota_g`` of :func:`stratified_select`.
+    """
+    quotas = spec.quotas(n_drop)
+    w_all = torch.as_tensor(weights, dtype=torch.float32).cpu()
+    masks, idxs = {}, {}
+    n_active = 0
+    for g, (start, L) in spec.slices.items():
+        k = L - quotas[g]
+        w = w_all[start:start + L]
+        bits = _group_rank_bits(seed, "wsel/", g, L)
+        u = torch.clamp((bits >> 8).to(torch.float32) / 16777216.0,
+                        1e-7, 1.0 - 1e-7)
+        gumbel = -torch.log(-torch.log(u))
+        score = torch.log(torch.clamp(w, min=1e-9)) + gumbel
+        order = torch.argsort(-score, stable=True)
+        act = torch.sort(order[:k]).values
+        masks[g], idxs[g] = _mask_from_active(act, L), act
+        n_active += k
     return masks, idxs, n_active
 
 
@@ -104,6 +145,35 @@ def uniform_select(spec: ZOSpec, seed: int, n_drop: int):
     """Paper policy: global uniform drop (dynamic per-group counts)."""
     active = selection.uniform_active(seed, spec.num_layers, n_drop)
     return spec.split_mask(active), None, spec.num_layers - n_drop
+
+
+def global_layer_mask(spec: ZOSpec, masks) -> torch.Tensor:
+    """Per-group masks -> one (num_layers,) bool at the global indices."""
+    gmask = torch.zeros((spec.num_layers,), dtype=torch.bool)
+    for g, (start, L) in spec.slices.items():
+        gmask[start:start + L] = masks[g]
+    return gmask
+
+
+def leaf_shapes(params) -> Tuple[Tuple[int, ...], ...]:
+    """Leaf shapes in ``ZOSpec.paths`` order."""
+    return tuple(tuple(p.shape) for _, p in leaf_items(params))
+
+
+def active_param_count(spec: ZOSpec, shapes, masks) -> np.float32:
+    """float32 count of parameters one direction's z touches: full sizes
+    of always-perturbed leaves + mask-selected rows of stacked leaves,
+    summed in the reference's leaf order (its dicts flatten by sorted
+    key, so: by path components), which fixes the float32 rounding."""
+    total = np.float32(0.0)
+    order = sorted(range(len(shapes)), key=lambda i: spec.paths[i].split("/"))
+    for shape, group in ((shapes[i], spec.groups[i]) for i in order):
+        if group is None:
+            total = total + np.float32(math.prod(shape))
+        else:
+            n_on = np.float32(int(masks[group].sum()))
+            total = total + n_on * np.float32(math.prod(shape[1:]))
+    return total
 
 
 # ----------------------------------------------------------------- axpy

@@ -38,6 +38,11 @@
 //   and V load while the current one is used (two stages).
 // - The output goes out through the warp's own rows of the Q tile in
 //   shared memory, as 16-byte stores.
+// - Optionally (stats != nullptr, a forward whose gradient is wanted)
+//   each row's final running max m and sum l go out as float32, so the
+//   backward (kernels/flash_attn.py, tensor ops) recomputes P from q, k
+//   and them: stats[head * Sq + row] = m, stats[(heads + head) * Sq +
+//   row] = l.
 //
 // Why mma.sync and not wgmma/TMA: a head at S = 63 is 64x64x128 +
 // 64x128x64 multiply-adds, too little to keep a warpgroup's
@@ -134,7 +139,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int Sq, int Sk, int KV,
+                 __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ stats, int Sq, int Sk, int KV,
                  int G, int q_offset, int k_offset, int causal, float scale) {
   constexpr int TILE = 64 * DH;          // elements of one 64-row tile
   constexpr int KSTEPS = DH / 16;        // k16 steps of Q.K^T
@@ -296,6 +302,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(__fdiv_rn(o[j][2 * h], den[h]),
                     __fdiv_rn(o[j][2 * h + 1], den[h]));
     }
+  if (stats != nullptr && t4 == 0) {      // a quad's lanes hold equal m, l
+    const long long heads = gridDim.x;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * 16 + gr + 8 * h;
+      if (row < Sq) {
+        stats[(long long)head * Sq + row] = m[h];
+        stats[(heads + head) * Sq + row] = l[h];
+      }
+    }
+  }
   __syncwarp();
 #pragma unroll
   for (int i = 0; i < CPR / 2; ++i) {    // 16 rows x CPR chunks, 32 lanes
@@ -307,9 +324,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int KV, int G, int q_offset, int k_offset,
-           int causal, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* stats, int B, int Sq, int Sk, int KV, int G, int q_offset,
+           int k_offset, int causal, float scale, void* stream) {
   const long long heads = (long long)B * KV * G;
   const int qtiles = (Sq + BQ - 1) / BQ;
   if (heads == 0 || qtiles == 0) return 0;
@@ -326,22 +343,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_fwd_kernel<DH><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Sk, KV, G, q_offset, k_offset, causal, scale);
+      stats, Sq, Sk, KV, G, q_offset, k_offset, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 only; dh in {32, 64, 128}; every row of q/k/v/out 16-byte aligned.
+// stats: nullptr, or float32 (2, B, KV, G, Sq) for each row's m and l.
 // Returns the cudaError_t of the launch.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, int B, int Sq, int Sk, int KV,
-                                int G, int dh, int q_offset, int k_offset,
-                                int causal, float scale, void* stream) {
+                                void* out, float* stats, int B, int Sq,
+                                int Sk, int KV, int G, int dh, int q_offset,
+                                int k_offset, int causal, float scale,
+                                void* stream) {
   switch (dh) {
-    case 32:  return launch<32>(q, k, v, out, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
-    case 64:  return launch<64>(q, k, v, out, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
+    case 32:  return launch<32>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
+    case 64:  return launch<64>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
+    case 128: return launch<128>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
     default:  return (int)cudaErrorInvalidValue;
   }
 }

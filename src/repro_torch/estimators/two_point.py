@@ -14,9 +14,9 @@ from repro_torch.estimators.base import DirectionSet, Estimator, host_f32
 class TwoPointSPSA(Estimator):
     name = "two_point"
 
-    def estimate(self, loss_fn, params, batch, seed):
+    def estimate(self, loss_fn, params, batch, seed, state=None):
         cfg = self.cfg
-        masks, idxs, n_active = self.select(seed)
+        masks, idxs, n_active = self.select(seed, state)
         if self.virtual and cfg.paired_probes:
             losses = self._vloss_pair(loss_fn, params, batch, seed, cfg.eps,
                                       masks)
@@ -42,6 +42,8 @@ class TwoPointSPSA(Estimator):
             "l_plus": l_plus,
             "l_minus": l_minus,
             "projected_grad": g,
+            "probe_grads": np.array([g], np.float32),
+            "eps": np.float32(cfg.eps),
             "active_layers": n_active,
         }
         return params, dirs, metrics

@@ -7,7 +7,9 @@ never exist in memory: the forward makes z inside its matmul tiles
 paired forward plus one update axpy, with no perturb or restore writes.
 
 Select it with ``forward_backend="virtual"`` (the kernels) or
-``"virtual_ref"`` (the plain versions).
+``"virtual_ref"`` (the plain versions).  A ctx carries one probe
+(``make_ctx``), the ±εz pair (``make_pair_ctx``) or P independent probes
+(``make_stack_ctx``, one_sided's q-chunks).
 """
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ from repro_torch.fused.matmul import pmatmul, pmatmul_stack
 from repro_torch.fused.view import LayerPerturb, PerturbCtx, ProbePair
 
 __all__ = ["FORWARD_BACKENDS", "LayerPerturb", "PerturbCtx",
-           "ProbePair", "make_ctx", "make_pair_ctx", "pmatmul",
-           "pmatmul_stack", "ref"]
+           "ProbePair", "make_ctx", "make_pair_ctx", "make_stack_ctx",
+           "pmatmul", "pmatmul_stack", "ref"]
 
 
 def _impl_of(forward_backend: str) -> str:
@@ -45,3 +47,14 @@ def make_pair_ctx(seed: int, eps: float, masks,
           {g: m[None].expand(2, *m.shape) for g, m in masks.items()})
     return PerturbCtx(seed=(seed, seed), scale=(eps, -eps), masks=sm,
                       impl=_impl_of(forward_backend), pair=ProbePair(n=2))
+
+
+def make_stack_ctx(seeds, scale: float, masks,
+                   forward_backend: str) -> PerturbCtx:
+    """P independent probes of one scale stacked on one forward:
+    ``seeds`` length P, ``masks`` group -> (P, L_g).  Each probe keeps
+    its own z stream; ``lm_loss`` returns a (P,) loss vector."""
+    seeds = tuple(int(s) for s in seeds)
+    return PerturbCtx(seed=seeds, scale=(float(scale),) * len(seeds),
+                      masks=masks, impl=_impl_of(forward_backend),
+                      pair=ProbePair(n=len(seeds)))

@@ -3,7 +3,8 @@
 ``pmatmul`` they replace).
 
 ``pmatmul_stack(x, w, seeds, scales, active)`` computes P probes
-``x[p] @ (w + scales[p]*z(seeds[p]))`` off one pass over W (K3);
+``x[p] @ (w + scales[p]*z(seeds[p]))`` (K3), off one pass over W for
+P <= 2;
 ``pmatmul`` is the single-probe form with a LeZO ``active`` predicate
 (K4).  Both launch ``csrc/pmatmul.cu`` on CUDA tensors: it reads W in its
 stored layout through its strides (the tied head passes ``tok.T``, a
@@ -14,6 +15,16 @@ accumulates in f32.  Each operand is loaded by TMA where TMA can describe
 it (``load_routes``), else by per-thread loads; ``route_counters`` counts
 launches by route.  On CPU tensors they run the plain versions in
 ``fused/ref.py``.
+
+Any P: the kernel is instantiated for P in {1, 2} (``Args<P>`` and the
+perturbed W tiles in shared memory grow with P).  For P > 2 the wrapper
+launches it on groups of at most two probes of one activity
+(``probe_groups``): the active probes first, paired in order, drawing z
+only for them; then the inactive ones through the RNG-free route.  Every
+output row still runs the single-probe program, so the result equals P
+single-probe calls bit for bit; W is read once per group.  A group of
+consecutive probes reads x and writes its output in place; any other
+group gathers its x rows and scatters its output.
 
 ``row_off``/``col_off``/``ld``/``trans`` define the counter window into
 the stored leaf, as in the reference.
@@ -28,7 +39,7 @@ from repro_torch.fused import ref as fref
 from repro_torch.kernels import _build
 
 
-stack_counter = _build.Counter()     # K3
+stack_counter = _build.Counter()     # K3 launches (one per probe group)
 single_counter = _build.Counter()    # K4
 # K3 and K4 launches by load route: "tma" when TMA loads both x and W,
 # "thread" when per-thread loads fill either.
@@ -48,7 +59,17 @@ def load_routes(x3: torch.Tensor, w: torch.Tensor):
     return _tma_ok(x3, x3.shape[-1]), _tma_ok(w, pitch)
 
 
-def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off):
+def probe_groups(active):
+    """Probe indices of the K3 launches for P > 2 probes: groups of at
+    most two of one activity, the active probes first, each list in
+    probe order."""
+    on = [p for p, a in enumerate(active) if a]
+    off = [p for p, a in enumerate(active) if not a]
+    return [ps[i:i + 2] for ps in (on, off) for i in range(0, len(ps), 2)]
+
+
+def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off,
+            out=None):
     P, K = x.shape[0], x.shape[-1]
     lead = x.shape[1:-1]
     N = w.shape[1]
@@ -63,7 +84,10 @@ def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off):
         raise ValueError("pmatmul kernel reads W row- or column-contiguous")
     x3 = x.reshape(P, -1, K).contiguous()
     M = x3.shape[1]
-    out = torch.empty((P, M, N), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((P, M, N), dtype=x.dtype, device=x.device)
+    elif not out.is_contiguous() or out.numel() != P * M * N:
+        raise ValueError("pmatmul kernel writes a contiguous (P, M, N) out")
     if ld is None:
         ld = w.shape[0] if trans else N
     eff = [float(s) if a else 0.0 for s, a in zip(scales, active)]
@@ -107,8 +131,30 @@ def pmatmul_stack(x, w, seeds, scales, active, *, trans=False, ld=None,
     if x.device.type != "cuda":
         return fref.pmatmul_stack(x, w, seeds, scales, active, trans=trans,
                                   ld=ld, row_off=row_off, col_off=col_off)
-    out = _launch(x, w, tuple(seeds), tuple(scales),
-                  tuple(bool(a) for a in active), trans=trans, ld=ld,
-                  row_off=row_off, col_off=col_off)
-    stack_counter.launches += 1
+    seeds, scales = tuple(seeds), tuple(scales)
+    active = tuple(bool(a) for a in active)
+    kw = dict(trans=trans, ld=ld, row_off=row_off, col_off=col_off)
+    P = x.shape[0]
+    if P <= 2:
+        out = _launch(x, w, seeds, scales, active, **kw)
+        stack_counter.launches += 1
+        return out
+    out = torch.empty((*x.shape[:-1], w.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    for g in probe_groups(active):
+        if len(g) == 2 and seeds[g[0]] == seeds[g[1]]:
+            # direction_seeds folds the direction index into every seed
+            raise ValueError(f"probes {g} of one stack share seed "
+                             f"{seeds[g[0]]}")
+        sub = lambda t: tuple(t[p] for p in g)
+        if g[-1] - g[0] == len(g) - 1:          # consecutive: views
+            sl = slice(g[0], g[-1] + 1)
+            _launch(x[sl], w, sub(seeds), sub(scales), sub(active),
+                    out=out[sl], **kw)
+        else:
+            idx = torch.tensor(g, device=x.device)
+            out.index_copy_(0, idx, _launch(
+                x.index_select(0, idx), w, sub(seeds), sub(scales),
+                sub(active), **kw))
+        stack_counter.launches += 1
     return out

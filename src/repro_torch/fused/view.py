@@ -18,8 +18,9 @@ they are activation-sized.
 
 Paired probes (:class:`ProbePair`): a ctx may carry P probes riding ONE
 forward whose activations fold the probe axis into the batch, p-major
-((P·B, S, D)).  Every weight matmul then runs as one stacked K3 call
-that reads each W tile once for all P probes.
+((P·B, S, D)): the ±εz pair, or P independent probes of one_sided.
+Every weight matmul then runs as one stacked K3 call (one launch for
+P <= 2, reading each W tile once for both probes; groups of two beyond).
 """
 from __future__ import annotations
 

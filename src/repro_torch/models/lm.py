@@ -18,6 +18,13 @@ The loss is a chunked cross-entropy over sequence chunks, so the
 (B, S, V) logits never exist at once.  Under a paired ctx it runs once
 per probe, literally the unpaired program, so paired and unpaired
 losses agree bit for bit.
+
+ZO training runs no autograd (``lm_loss`` under no-grad).  First-order
+training (``core/fo.py``) calls ``lm_loss(..., grad=True)`` after
+:func:`grad_leaves` has split every stacked leaf into per-layer views
+that require grad: a layer's gradient is then a tensor of its own, where
+the slice of a stacked leaf would make each layer's backward allocate
+and add a gradient the size of the whole stack.
 """
 from __future__ import annotations
 
@@ -37,8 +44,10 @@ CE_CHUNK = 512
 
 class ParamNode(nn.Module):
     """A node of the parameter tree; ``node["wq"]`` reads a child like
-    the reference's dicts do.  Leaves are ``requires_grad=False``: ZO
-    training runs no autograd."""
+    the reference's dicts do.  Leaves are ``requires_grad=False`` unless
+    :func:`grad_leaves` made them trainable for first-order training."""
+
+    _split = None     # leaf name -> per-layer views (``grad_leaves``)
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -58,7 +67,9 @@ class ParamNode(nn.Module):
 
     def layer(self, l: int) -> Dict:
         """One layer's slice of every stacked leaf below (views)."""
-        out = {k: p[l] for k, p in self._parameters.items()}
+        split = self._split or {}
+        out = {k: split[k][l] if k in split else p[l]
+               for k, p in self._parameters.items()}
         out.update({k: m.layer(l) for k, m in self._modules.items()})
         return out
 
@@ -147,6 +158,27 @@ def params_to_numpy(params: LM) -> Dict[str, np.ndarray]:
         if t.dtype == torch.bfloat16:
             t = t.to(F32)
         out[name.replace(".", "/")] = t.numpy()
+    return out
+
+
+def grad_leaves(params: LM):
+    """Make the parameters trainable by autograd: ``[(path, layer,
+    tensor)]`` in ``named_parameters`` order, where each stacked leaf
+    (under ``stages/``) is split into per-layer views of its storage
+    (``layer`` its index; the forward reads them) and every other leaf
+    is itself (``layer`` None).  All require grad; an in-place update of
+    a view updates the stacked parameter."""
+    out = []
+    for prefix, node in params.named_modules():
+        for k, p in node._parameters.items():
+            path = f"{prefix}.{k}".lstrip(".").replace(".", "/")
+            if path.startswith("stages/"):
+                views = [p.detach()[l].requires_grad_()
+                         for l in range(p.shape[0])]
+                node._split = {**(node._split or {}), k: views}
+                out.extend((path, l, v) for l, v in enumerate(views))
+            else:
+                out.append((path, None, p.requires_grad_()))
     return out
 
 
@@ -250,11 +282,14 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-@torch.no_grad()
-def lm_loss(cfg: ModelConfig, params: LM, batch, perturb=None):
+def lm_loss(cfg: ModelConfig, params: LM, batch, perturb=None, *,
+            grad: bool = False):
     """batch: {tokens (B,S), labels (B,S), loss_mask (B,S)} tensors.
     ``perturb``: evaluate loss(theta + s*eps*z) virtually; a paired ctx
-    returns the (P,) loss vector ``[l_plus, l_minus]``."""
-    hidden = forward(cfg, params, batch["tokens"], perturb=perturb)
-    return chunked_ce(cfg, params, hidden, batch["labels"],
-                      batch["loss_mask"], perturb=perturb)
+    returns the (P,) loss vector ``[l_plus, l_minus]``.  ``grad=True``
+    records the graph for a backward (first-order training); otherwise
+    the loss runs under no-grad."""
+    with torch.set_grad_enabled(grad):
+        hidden = forward(cfg, params, batch["tokens"], perturb=perturb)
+        return chunked_ce(cfg, params, hidden, batch["labels"],
+                          batch["loss_mask"], perturb=perturb)

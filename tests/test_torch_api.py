@@ -28,11 +28,11 @@ def test_preset_json_identical(name):
 
 
 @pytest.mark.parametrize("override,path", [
-    ({"estimator.name": "one_sided"}, "estimator.name"),
-    ({"optimizer.mode": "fo"}, "optimizer.mode"),
+    ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
+    ({"telemetry.enabled": True}, "telemetry.enabled"),
     ({"runtime.peft": "lora"}, "runtime.peft"),
     ({"swarm.workers": 2}, "swarm.workers"),
-    ({"runtime.n_loss_shards": 2}, "runtime.n_loss_shards"),
+    ({"runtime.peft": "prefix"}, "runtime.peft"),
     ({"task.name": "sst2"}, "task.name"),
     ({"model.arch": "qwen3-14b"}, "model.arch"),
 ])

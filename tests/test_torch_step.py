@@ -104,10 +104,10 @@ def test_paired_step_bitwise_matches_unpaired(setup, fb):
     for paired in (True, False):
         tp = tlm.params_from_numpy(tc, flat, "cpu")
         spec = tzo.build_spec(tp, tlm.zo_group_fn)
-        step = test_.make_step(
+        step, init = test_.make_step(
             lambda p, b, perturb=None: tlm.lm_loss(tc, p, b, perturb=perturb),
             spec, _cfgs(fb, "pallas", paired)[1])
-        tp, met = step(tp, tb, 5, 99)
+        tp, _, met = step(tp, init(), tb, 5, 99)
         out[paired] = (met, tlm.params_to_numpy(tp))
     for key in ("l_plus", "l_minus", "projected_grad"):
         assert out[True][0][key] == out[False][0][key], key
@@ -125,10 +125,10 @@ def test_step_axpy_sweep_count(setup, monkeypatch, fb, sweeps):
     monkeypatch.setattr(tzo, "tree_axpy_",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     cfg = _cfgs(fb, "pallas")[1]
-    step = test_.make_step(
+    step, init = test_.make_step(
         lambda p, b, perturb=None: tlm.lm_loss(tc, p, b, perturb=perturb),
         spec, cfg)
-    step(tp, {k: torch.tensor(v) for k, v in batch.items()}, 0, 1)
+    step(tp, init(), {k: torch.tensor(v) for k, v in batch.items()}, 0, 1)
     assert len(calls) == sweeps
     assert test_.costs.step_counts("two_point", forward_backend=fb)[
         "axpy_sweeps"] == sweeps
