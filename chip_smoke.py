@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--phases build,rng,parity,train,check,profile]
+    python3 chip_smoke.py [--phases build,rng,parity,train,check,...]
 
 Phases (all by default; ``check`` and ``profile`` need ``train``), each
 of which fails the run (non-zero exit) when it fails:
@@ -21,8 +21,11 @@ of which fails the run (non-zero exit) when it fails:
              launches queue behind a sleep on the stream, so the card and
              not the host sets the pace).  K3
              is also timed with no active probe at (D, d_ff) and active at
-             (D, D), the shape of 4 of a layer's 6 launches; K2 also at a
-             long sequence (S = 1024), off the main path.
+             (D, D), the shape of 4 of a layer's 6 launches; K2 also at
+             prefix tuning's shape (Sk = 68, k_offset = -5; SDPA with the
+             mask beside), at the task scorers' batch (64) and at a long
+             sequence (S = 1024), off the main path; K1 also at the LoRA
+             leaves' shapes.
 4. train   — the main path: preset ``lezo-opt13b`` at full width and
              depth (OPT-13B, 40 layers, bf16, random weights from a seeded
              ``torch.Generator``) with ``runtime.backend=pallas`` and
@@ -31,11 +34,15 @@ of which fails the run (non-zero exit) when it fails:
              just before and read just after; every K3/K4 launch must
              load by TMA.
 5. check   — on the trained weights, the virtual pair's losses against
-             the materialized probes (kernel K1 perturbing in place), and
-             a one-step run of a small bf16 OPT on the card against the
-             same step on the CPU (plain versions).  Also read, not
-             gated: the same pair-vs-probe gap with K2's plain version in
-             the model, on these weights and on weights trained with it.
+             the materialized probes (kernel K1 perturbing in place), the
+             virtual l- against a materialized theta - eps z made from
+             the unperturbed weights (gated at 1e-4 relative, and shown
+             failing for a planted theta - 1.25 eps z), and a one-step
+             run of a small bf16
+             OPT on the card against the same step on the CPU (plain
+             versions).  Also read, not gated: the same gaps with K2's
+             plain version in the model, on these weights and on weights
+             trained with it.
 6. profile — one more main-path step under ``torch.profiler``: device
              time by kernel, each port kernel's device time per launch,
              and the device's idle share of the step.
@@ -49,13 +56,23 @@ of which fails the run (non-zero exit) when it fails:
              what ``costs.step_counts`` and K3's probe grouping imply.
 8. momentum — ``zo_momentum`` on the same weights, materialized, K1
              sweeps (probe, restore and the K history sweeps), 3 steps.
-9. fo      — K2's backward against autograd through its plain version at
-             the main shape; then first-order training: ``fo-opt13b`` with
-             SGD at full width and depth on the same weights, and the
-             preset's AdamW at full width and 16 layers (the 40-layer
-             AdamW state does not fit in 80 GB), peak memory beside the
-             ZO step's.
-10. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+9. tasks   — the task registry on fresh seeded weights: the main path on
+             ``sst2`` (4 steps, one evaluation of 64 examples), then
+             zero-shot ``api.evaluate`` on ``copa`` and ``squad_copy``;
+             launches against ``costs.step_counts`` plus the evaluation
+             forwards; each scorer with K2 against K2's plain version
+             (within 8 bf16 steps), SDPA in K2's place beside it; the
+             same read, not gated, on the weights earlier phases trained.
+10. peft   — ZO over a LoRA tree (``lezo-opt13b-lora``) and a prefix tree
+             (``runtime.peft=prefix``) on the weights of ``tasks``,
+             materialized,
+             3 steps each: step seconds, peak memory, K1/K2 launches.
+11. fo     — K2's backward against autograd through its plain version at
+             the main shape; then first-order training with float32
+             master weights: ``fo-opt13b`` with SGD at 20 and the
+             preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
+             memory and state sizes.
+12. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
 
@@ -280,6 +297,39 @@ def phase_parity(cfg, eps, k1_sass):
         f"{k1_sass} SASS instructions an element: {r1.get('issue_share')}")
     del theta, got, want
 
+    # K1 at the LoRA leaves of lezo-opt13b-lora: A (L, D, r) and B (L, r,
+    # D) of wq/wv, each a (L, D*r) stacked view, 10 of 40 layers active
+    L, r = cfg.num_layers, 8
+    lmask = torch.zeros(L, dtype=torch.bool)
+    lmask[torch.randperm(L, generator=torch.Generator().manual_seed(3))[
+        :L // 4]] = True
+    for shape in ((L, D, r), (L, r, D)):
+        theta = torch.randn(shape, generator=g, device=dev, dtype=bf) * 0.02
+        got, want = theta.clone(), theta.clone()
+        kzo.zo_axpy_2d_(got.view(L, -1), lmask, seed, scale, 1.0)
+        kref.zo_axpy_2d_(want.view(L, -1), lmask, seed, scale, 1.0)
+        ulps = bf16_ulps(got, want).max().item()
+        if ulps > 1 or not torch.equal(got[~lmask.to(dev)].view(torch.int16),
+                                       theta[~lmask.to(dev)].view(
+                                           torch.int16)):
+            raise SystemExit(f"zo_axpy_2d LoRA {shape}: {ulps} bf16 ulp or "
+                             "a masked-off row changed")
+    n_act = int(lmask.sum()) * D * r
+    b_ms, b_by = bound(n_act * 2 * 2, instructions=n_act * K1_OPS)
+    flat = got.view(L, -1)
+    r1.update(
+        lora_max_abs_err=(got.float() - want.float()).abs().max().item(),
+        lora_ms=time_ms(lambda: kzo.zo_axpy_2d_(flat, lmask, seed, scale,
+                                                1.0), reps=20),
+        lora_plain_ms=time_ms(lambda: kref.zo_axpy_2d_(
+            want.view(L, -1), lmask, seed, scale, 1.0)),
+        lora_bound_ms=b_ms, lora_bound_by=b_by, lora_library_ms=None)
+    log(f"[parity] zo_axpy_2d LoRA A ({L}, {D}, {r}) and B ({L}, {r}, {D}) "
+        f"bf16, {int(lmask.sum())} of {L} rows: <= 1 ulp; "
+        f"{r1['lora_ms']:.4f} ms, plain {r1['lora_plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del theta, got, want, flat
+
     # K3: P = 2 stacked probes of the +-eps pair, both FFN shapes
     w_seed = 0xBEEF
     for K, N in ((D, Fd), (Fd, D)):
@@ -421,6 +471,62 @@ def phase_parity(cfg, eps, k1_sass):
         f"max|err| {err:.3e}; {rows['flash_attention']['ms']:.4f} ms, SDPA "
         f"{rows['flash_attention']['library_ms']:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
+    # K2 at prefix tuning's shape: 5 always-visible keys ahead of the 63
+    # positions (k_offset = -5, Sk = 68), one probe of batch 16
+    npre = 5
+    q = torch.randn((B, S, H, 1, dh), generator=g, device=dev, dtype=bf)
+    k = torch.randn((B, S + npre, H, dh), generator=g, device=dev, dtype=bf)
+    v = torch.randn((B, S + npre, H, dh), generator=g, device=dev, dtype=bf)
+    kw = dict(causal=True, k_offset=-npre)
+    got = kfa.flash_attention(q, k, v, **kw)
+    want = kfa.flash_attention_plain(q, k, v, **kw)
+    err = close(got, want, "flash_attention prefix")
+    qs, ks, vs = (t.reshape(B, t.shape[1], H, dh).transpose(1, 2)
+                  .contiguous() for t in (q, k, v))
+    allowed = (torch.arange(S, device=dev)[:, None]
+               >= torch.arange(S + npre, device=dev)[None, :] - npre)
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                       tensor_flops=4.0 * B * H * dh * int(allowed.sum()))
+    r2 = rows["flash_attention"]
+    r2.update(
+        prefix_max_abs_err=err,
+        prefix_ms=time_ms(lambda: kfa.flash_attention(q, k, v, **kw),
+                          reps=50),
+        prefix_plain_ms=time_ms(lambda: kfa.flash_attention_plain(
+            q, k, v, **kw)),
+        prefix_bound_ms=b_ms, prefix_bound_by=b_by,
+        prefix_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=allowed), reps=50))
+    log(f"[parity] flash_attention prefix q ({B}, {S}, {H}, 1, {dh}), k/v "
+        f"Sk = {S + npre}, k_offset = -{npre}: max|err| {err:.3e}; "
+        f"{r2['prefix_ms']:.4f} ms, SDPA with the mask "
+        f"{r2['prefix_library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # K2 at the task scorers' largest batch: copa's chunk of 32 examples
+    # with 2 choices each
+    from repro_torch.tasks import metrics
+    Bs = 2 * metrics.CHUNK
+    q = torch.randn((Bs, S, H, 1, dh), generator=g, device=dev, dtype=bf)
+    k = torch.randn((Bs, S, H, dh), generator=g, device=dev, dtype=bf)
+    v = torch.randn((Bs, S, H, dh), generator=g, device=dev, dtype=bf)
+    got = kfa.flash_attention(q, k, v, causal=True)
+    want = kfa.flash_attention_plain(q, k, v, causal=True)
+    err = close(got, want, "flash_attention scorer batch")
+    qs, ks, vs = (t.reshape(Bs, S, H, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    b_ms, b_by = bound(4 * q.numel() * 2,
+                       tensor_flops=4.0 * Bs * H * dh * pairs)
+    r2.update(
+        scorer_max_abs_err=err,
+        scorer_ms=time_ms(lambda: kfa.flash_attention(q, k, v, causal=True),
+                          reps=50),
+        scorer_plain_ms=time_ms(lambda: kfa.flash_attention_plain(
+            q, k, v, causal=True)),
+        scorer_bound_ms=b_ms, scorer_bound_by=b_by,
+        scorer_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), reps=50))
+    log(f"[parity] flash_attention scorer batch ({Bs}, {S}, {H}, 1, {dh}): "
+        f"max|err| {err:.3e}; {r2['scorer_ms']:.4f} ms, SDPA "
+        f"{r2['scorer_library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     # K2 off the main path: a long sequence, 16 query and key tiles a head
     Bl, Sl = 4, 1024
     q = torch.randn((Bl, Sl, H, 1, dh), generator=g, device=dev, dtype=bf)
@@ -497,10 +603,16 @@ def phase_train():
     return spec, cfg, hist["final_params"], launches
 
 
-def probe_gap(spec, cfg, params):
+def probe_gap(spec, cfg, params, plant=1.0):
     """The virtual pair's losses (l+, l-) on ``params`` against the
     materialized probes' (kernel K1 perturbing in place, then undoing),
-    and their relative differences."""
+    and their relative differences; then l- of a materialized theta -
+    plant * eps z made from the unperturbed weights (one bf16 rounding,
+    as the virtual l- has; the probe above reaches it as theta + eps z -
+    2 eps z, rounded twice) and its relative difference to the virtual
+    l-.  ``plant`` != 1 offsets that probe on purpose, to show the gate
+    on it firing.  The weights are put back bit for bit from a copy on
+    the card."""
     import torch
     from repro_torch import fused
     from repro_torch.api import runners
@@ -518,29 +630,76 @@ def probe_gap(spec, cfg, params):
     eps = spec.optimizer.eps
     pair = lm.lm_loss(cfg, params, batch, perturb=fused.make_pair_ctx(
         seed, eps, masks, "virtual")).tolist()
+    # a copy of what the probe changes: always-on leaves, active layers
+    rows = [slice(None) if g is None else idxs[g].to(params["embed"][
+        "tok"].device) for g in zspec.groups]
+    snap = [t[r].clone() for (_, t), r in zip(zo.leaf_items(params), rows)]
+    zo.tree_axpy_(params, zspec, seed, -eps * plant, masks, idxs,
+                  backend="pallas")
+    direct = lm.lm_loss(cfg, params, batch).item()
+    with torch.no_grad():
+        for (_, t), r, old in zip(zo.leaf_items(params), rows, snap):
+            t[r] = old
+    del snap
     mat = []
     for s in (eps, -2 * eps):
         zo.tree_axpy_(params, zspec, seed, s, masks, idxs, backend="pallas")
         mat.append(lm.lm_loss(cfg, params, batch).item())
     zo.tree_axpy_(params, zspec, seed, eps, masks, idxs, backend="pallas")
     rel = [abs(a - b) / abs(b) for a, b in zip(pair, mat)]
-    if not all(math.isfinite(x) for x in pair + mat):
-        raise SystemExit(f"check: probe losses not finite: {pair} {mat}")
-    return pair, mat, rel
+    if not all(math.isfinite(x) for x in pair + mat + [direct]):
+        raise SystemExit(f"check: probe losses not finite: {pair} {mat} "
+                         f"{direct}")
+    return pair, mat, rel, direct, abs(pair[1] - direct) / abs(direct)
 
 
 @contextlib.contextmanager
-def plain_k2():
-    """The model's attention through K2's plain version, for a reading
-    that separates K2's rounding from the rest (the model calls
-    ``kernels.flash_attn.flash_attention``)."""
+def swap_k2(fn):
+    """The model's attention through ``fn`` in place of K2 (the model
+    calls ``kernels.flash_attn.flash_attention``)."""
     from repro_torch.kernels import flash_attn as kfa
     kernel = kfa.flash_attention
-    kfa.flash_attention = kfa.flash_attention_plain
+    kfa.flash_attention = fn
     try:
         yield
     finally:
         kfa.flash_attention = kernel
+
+
+def plain_k2():
+    """K2's plain version in the model, for a reading that separates
+    K2's rounding from the rest."""
+    from repro_torch.kernels import flash_attn as kfa
+    return swap_k2(kfa.flash_attention_plain)
+
+
+def sdpa_attention(q, k, v, *, causal=True, q_offset=0, k_offset=0, **_):
+    """K2's function through ``F.scaled_dot_product_attention`` with an
+    explicit mask: a second witness beside K2 against its plain version,
+    for readings only."""
+    import torch
+    import torch.nn.functional as F
+    B, Sq, KV, G, dh = q.shape
+    Sk = k.shape[1]
+    qs = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, Sq, dh)
+    ks, vs = (t.permute(0, 2, 1, 3).repeat_interleave(G, 1) for t in (k, v))
+    mask = None
+    if causal:
+        mask = ((q_offset + torch.arange(Sq, device=q.device))[:, None]
+                >= (k_offset + torch.arange(Sk, device=q.device))[None, :])
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+    return out.reshape(B, KV, G, Sq, dh).permute(0, 3, 1, 2, 4)
+
+
+# The virtual l- and a materialized theta - eps z round the same bf16
+# weights once each; they read equal on the card (0.0 in every run), so
+# the gate leaves room for a sum in another order only.
+DIRECT_GAP = 1e-4
+PLANT = 1.25            # the planted probe: theta - 1.25 eps z
+
+
+def direct_gate(gap):
+    return gap <= DIRECT_GAP
 
 
 def phase_check(spec, cfg, params):
@@ -553,21 +712,37 @@ def phase_check(spec, cfg, params):
     from repro_torch.data import synthetic
     from repro_torch.models import lm
 
-    pair, mat, rel = probe_gap(spec, cfg, params)
+    pair, mat, rel, direct, gap = probe_gap(spec, cfg, params)
     log(f"[check] OPT-13B virtual pair {pair} vs materialized {mat}: "
         f"rel diff {rel}")
+    log(f"[check] materialized theta - eps z from the unperturbed weights: "
+        f"l- {direct}, rel diff to the virtual l- {gap} (against "
+        f"{rel[1]} for theta + eps z - 2 eps z)")
     if max(rel) > 1e-2:
         raise SystemExit("check: virtual and materialized probe losses "
                          "differ by more than 1e-2 relative")
+    if not direct_gate(gap):
+        raise SystemExit(f"check: the virtual l- and the materialized "
+                         f"theta - eps z differ by {gap} relative, more "
+                         f"than {DIRECT_GAP}")
+    planted = probe_gap(spec, cfg, params, plant=PLANT)[4]
+    log(f"[check] planted theta - {PLANT} eps z: rel diff to the virtual "
+        f"l- {planted}, gate {'passes' if direct_gate(planted) else 'fails'}"
+        f" (it must fail)")
+    if direct_gate(planted):
+        raise SystemExit("check: the gate on theta - eps z passed a "
+                         f"probe offset to {PLANT} eps")
     with plain_k2():                 # readings, not gated
-        pair, mat, rel = probe_gap(spec, cfg, params)
+        pair, mat, rel, direct, gap = probe_gap(spec, cfg, params)
         log(f"[check] same weights, K2's plain version in the model: "
-            f"virtual pair {pair} vs materialized {mat}: rel diff {rel}")
+            f"virtual pair {pair} vs materialized {mat}: rel diff {rel}; "
+            f"theta - eps z l- {direct}, rel diff {gap}")
         other = api.run(spec)["history"]
-        pair, mat, rel = probe_gap(spec, cfg, other["final_params"])
+        pair, mat, rel, direct, gap = probe_gap(spec, cfg,
+                                                other["final_params"])
         log(f"[check] weights trained with K2's plain version (losses "
             f"{other['loss']}): virtual pair {pair} vs materialized {mat}: "
-            f"rel diff {rel}")
+            f"rel diff {rel}; theta - eps z rel diff {gap}")
         del other
     torch.cuda.empty_cache()
 
@@ -695,7 +870,7 @@ def expected_launches(spec, params, steps):
     return n
 
 
-def run_counted(tag, spec, params=None, trainer=None):
+def run_counted(tag, spec, params=None, trainer=None, val_data=None):
     """One training run (``api.run``, or ``trainer.train()``) with the
     launch counters zeroed just before and read just after; logs and
     returns (history, launches, peak GiB)."""
@@ -708,8 +883,8 @@ def run_counted(tag, spec, params=None, trainer=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    hist = (trainer.train() if trainer is not None
-            else api.run(spec, params=params)["history"])
+    hist = (trainer.train(val_data=val_data) if trainer is not None
+            else api.run(spec, params=params, val_data=val_data)["history"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {n: c.launches for n, c in counters.items()}
@@ -767,9 +942,199 @@ def phase_momentum(hold, cfg):
     check_launches("momentum", spec, params, launches)
 
 
-def phase_fo(hold, cfg):
-    """K2's backward on the card, then FO-SGD at full depth and FO-AdamW
-    at 16 layers, each with its peak memory."""
+# The task scorers' outputs with K2 against K2's plain version in the
+# same model, on fresh seeded weights: within SCORER_STEPS bf16 steps
+# (``close``), the 8 ISSUE-time prediction; fresh weights read 3.78,
+# 0.35 and 4.08 (PERF.md, NVIDIA H100 80GB HBM3, 700 W).
+SCORER_STEPS = 8
+N_EVAL = 64                           # examples a task phase scores
+
+
+def counted(fn):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after: (result, launches, peak GiB, seconds)."""
+    import torch
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {n: c.launches for n, c in counters.items()},
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            time.perf_counter() - t)
+
+
+def bf16_steps(got, want):
+    """max |got - want| in the units of ``close``: 2^-7 |want| + 2^-8
+    max|want|."""
+    unit = 2.0 ** -7 * want.abs() + 2.0 ** -8 * want.abs().max()
+    return ((got - want).abs() / unit).max().item()
+
+
+def scorer_gap(tag, fn, gate=True):
+    """``fn()`` (a tensor of scores or logits) with K2 in the model, and
+    with SDPA in K2's place, each against the same with K2's plain
+    version; with ``gate``, fails when K2's is past SCORER_STEPS bf16
+    steps.  Returns K2's difference in steps."""
+    import torch
+    got = torch.as_tensor(fn()).float()
+    with plain_k2():
+        want = torch.as_tensor(fn()).float()
+    with swap_k2(sdpa_attention):
+        lib = torch.as_tensor(fn()).float()
+    steps = bf16_steps(got, want)
+    if gate:
+        close(got, want, f"tasks {tag} with K2 against K2's plain version",
+              steps=SCORER_STEPS)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"[tasks] {tag} {tuple(got.shape)}: K2 vs K2's plain version "
+        f"max|err| {(got - want).abs().max().item():.3e} = {steps:.2f} bf16 "
+        f"steps (tolerance {SCORER_STEPS if gate else 'none, a reading'}), "
+        f"SDPA vs K2's plain version {bf16_steps(lib, want):.2f} steps, "
+        f"max|plain| {want.abs().max().item():.3e}, argmax agreement "
+        f"{agree:.4f}")
+    return steps
+
+
+def scorers(cfg, params, spec):
+    """The three scorers on N_EVAL examples of their tasks, tag -> fn:
+    sst2's verbalizer logits, copa's choice scores and squad_copy's
+    answer logits (one chunk)."""
+    import torch
+    from repro_torch import tasks
+    from repro_torch.models import lm
+    from repro_torch.tasks import metrics
+    data = {}
+    for name in ("sst2", "copa", "squad_copy"):
+        t = tasks.build(name, cfg.vocab, spec.model.seq_len, spec.run.seed)
+        data[name] = (t, t.make_dataset(N_EVAL, seed=t.seed + 1))
+    (sst2, ds), (_, dc), (_, dq) = (data[n] for n in (
+        "sst2", "copa", "squad_copy"))
+    mask = torch.as_tensor(dq["loss_mask"][:metrics.CHUNK] > 0,
+                           device="cuda")
+    return {
+        "sst2 verbalizer logits": lambda: metrics.verbalizer_logits(
+            cfg, params, ds["tokens"], sst2.verb_ids, lm),
+        "copa choice scores": lambda: metrics.choice_scores(
+            cfg, params, dc["choice_inputs"], dc["choice_labels"],
+            dc["choice_mask"], lm),
+        "squad_copy answer logits": lambda: metrics.logits(
+            cfg, params, dq["tokens"][:metrics.CHUNK], lm)[mask]}
+
+
+def phase_tasks(hold, cfg):
+    """The SuperGLUE-style registry on OPT-13B: the main path trained on
+    ``sst2`` with one evaluation of N_EVAL examples, then zero-shot
+    ``api.evaluate`` on ``copa`` (choice scores) and ``squad_copy`` (exact
+    match), with launches against ``costs.step_counts`` plus the
+    evaluation's forwards, and each scorer with K2 against K2's plain
+    version."""
+    from repro_torch import api
+    from repro_torch.tasks import metrics
+    from repro_torch.train.trainer import Trainer
+
+    spec = api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, "task.name": "sst2", "run.eval_every": 4})
+    # readings on the weights the earlier phases trained (the presets'
+    # learning rate, set for the CPU variants), with SDPA as a second
+    # witness; the gated checks below run on fresh seeded weights
+    if "params" in hold:
+        for tag, fn in scorers(cfg, hold["params"], spec).items():
+            scorer_gap(f"{tag} (trained weights)", fn, gate=False)
+        del fn                       # its closure holds those weights
+    hold.pop("params", None)
+    gc.collect()
+    params = full_params(hold, cfg)
+    L = cfg.num_layers
+    eval_fwd = 1 + -(-N_EVAL // metrics.CHUNK)   # val loss + scorer chunks
+    trainer = Trainer.from_spec(spec, params=params)
+    val = trainer.make_dataset(N_EVAL, seed_shift=1)
+    hist, launches, peak = run_counted("tasks sst2", spec, trainer=trainer,
+                                       val_data=val)
+    want = expected_launches(spec, params, spec.run.steps)
+    want["flash_attention"] += L * eval_fwd
+    if launches != want:
+        raise SystemExit(f"tasks sst2: launches {launches} != {want}")
+    log(f"[tasks] sst2 {hist['metric_name']} {hist['val_acc']} at steps "
+        f"{hist['val_step']} (random weights), val loss {hist['val_loss']}, "
+        f"best step {hist.get('best_step')}")
+    del hist, trainer
+    for name in ("copa", "squad_copy"):
+        tspec = api.with_overrides(spec, {"task.name": name})
+        rep, launches, peak, secs = counted(lambda: api.evaluate(
+            tspec, n_examples=N_EVAL, params=params))
+        log(f"[tasks] {name} zero-shot {rep['metric']} {rep['zeroshot']} "
+            f"(random weights), val loss {rep['zeroshot_val_loss']:.6f}; "
+            f"{secs:.2f} s, peak memory {peak:.2f} GiB; launches {launches}")
+        if launches != {"zo_axpy_2d": 0, "flash_attention": L * eval_fwd,
+                        "pmatmul_stack": 0, "pmatmul": 0}:
+            raise SystemExit(f"tasks {name}: launches {launches}")
+        if not math.isfinite(rep["zeroshot_val_loss"]):
+            raise SystemExit(f"tasks {name}: val loss not finite")
+    for tag, fn in scorers(cfg, params, spec).items():
+        scorer_gap(tag, fn)
+
+
+def phase_peft(hold, cfg):
+    """ZO over a PEFT tree on the OPT-13B weights (materialized, K1
+    perturbing the trainable tree): ``lezo-opt13b-lora`` and
+    ``lezo-opt13b`` with ``runtime.peft=prefix`` (K2 at k_offset = -5),
+    3 steps each, launches against ``costs.step_counts``."""
+    from repro_torch import api
+    from repro_torch.core import zo
+    from repro_torch.estimators import costs
+    from repro_torch.train.trainer import Trainer
+
+    params = full_params(hold, cfg)
+    for tag, name, ov in (("lora", "lezo-opt13b-lora", {}),
+                          ("prefix", "lezo-opt13b",
+                           {"runtime.peft": "prefix"})):
+        spec = api.with_overrides(api.preset(name), {
+            **MAIN_OVERRIDES, "runtime.forward_backend": "materialized",
+            "run.steps": 3, **ov})
+        trainer = Trainer.from_spec(spec, params=params)
+        n_tr = sum(t.numel() for _, t in zo.leaf_items(trainer.params))
+        hist, launches, peak = run_counted(f"peft {tag}", spec,
+                                           trainer=trainer)
+        c = costs.step_counts("two_point", forward_backend="materialized")
+        steps = spec.run.steps
+        want = {"zo_axpy_2d": len(trainer.spec.paths) * c["axpy_sweeps"]
+                * steps,
+                "flash_attention": cfg.num_layers * c["forwards"] * steps,
+                "pmatmul_stack": 0, "pmatmul": 0}
+        log(f"[peft] {tag}: {len(trainer.spec.paths)} trainable leaves, "
+            f"{n_tr / 1e6:.3f} M parameters")
+        if launches != want:
+            raise SystemExit(f"peft {tag}: launches {launches} != {want}")
+        del trainer, hist
+
+
+# FO at the depths the float32 master weights leave room for on 80 GB:
+# SGD holds bf16 params and grads and float32 masters (8 B a parameter),
+# AdamW two float32 moments more (16 B); OPT-13B has 314.6 M parameters a
+# layer and 267.9 M in the embeddings, so 20 and 10 of 40 layers.
+FO_DEPTHS = {"sgd": 20, "adamw": 10}
+
+
+def fo_state_gib(state):
+    """GiB of the FO state by kind: the leaves (their gradients take as
+    much), the float32 masters and the moments."""
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts
+                        if t is not None) / 2 ** 30
+    return {"leaves": nb(t for _, _, t in state.leaves),
+            "master": nb(state.master),
+            "moments": nb((state.mu or []) + (state.nu or []))}
+
+
+def phase_fo(cfg):
+    """K2's backward on the card, then FO-SGD and the preset's AdamW at
+    full width and the depths of ``FO_DEPTHS``, with float32 master
+    weights (the reference's stored precision), each with its peak
+    memory and state sizes beside the bf16-state figure."""
     import torch
     from repro_torch import api
     from repro_torch.kernels import flash_attn as kfa
@@ -795,29 +1160,34 @@ def phase_fo(hold, cfg):
 
     fo_overrides = {"model.variant": "full", "run.steps": 2,
                     "run.log_every": 1, "run.eval_every": 0}
-    spec = api.with_overrides(api.preset("fo-opt13b"), {
-        **fo_overrides, "optimizer.fo_optimizer": "sgd"})
-    params = full_params(hold, cfg)
-    hist, launches, peak = run_counted("fo sgd 40 layers", spec, params)
-    check_launches("fo sgd", spec, params, launches)
-    del params, hist
-    hold.pop("params")                 # frees the 40-layer weights
-    spec = api.with_overrides(api.preset("fo-opt13b"), fo_overrides)
-    d = api.derive(spec)
-    cut = dataclasses.replace(d.model_cfg, stages=(dataclasses.replace(
-        d.model_cfg.stages[0], repeat=16),))
-    log(f"[fo] AdamW cut to {cut.num_layers} of {d.model_cfg.num_layers} "
-        "layers at full width: params, grads and two moments of 40 layers "
-        "(4 x 25.7 GB) exceed the card's 80 GB")
-    trainer = Trainer(cut, d.task, d.tcfg, d.est_cfg, fo_cfg=d.fo_cfg,
-                      _spec=spec, _derived=d)
-    hist, launches, peak = run_counted("fo adamw 16 layers", spec,
-                                       trainer=trainer)
-    if launches != {"zo_axpy_2d": 0, "flash_attention": 16 * 2,
-                    "pmatmul_stack": 0, "pmatmul": 0}:
-        raise SystemExit(f"fo adamw: launches {launches}")
-    del trainer, hist
-    torch.cuda.empty_cache()
+    for opt, depth in FO_DEPTHS.items():
+        spec = api.with_overrides(api.preset("fo-opt13b"), {
+            **fo_overrides, "optimizer.fo_optimizer": opt})
+        d = api.derive(spec)
+        cut = dataclasses.replace(d.model_cfg, stages=(dataclasses.replace(
+            d.model_cfg.stages[0], repeat=depth),))
+        trainer = Trainer(cut, d.task, d.tcfg, d.est_cfg, fo_cfg=d.fo_cfg,
+                          _spec=spec, _derived=d)
+        gib = fo_state_gib(trainer.state)
+        n_par = sum(t.numel() for _, _, t in trainer.state.leaves)
+        log(f"[fo] {opt} cut to {depth} of {d.model_cfg.num_layers} layers "
+            f"at full width ({n_par / 1e9:.3f} B parameters): state GiB "
+            f"{ {k: round(v, 2) for k, v in gib.items()} } and grads as "
+            f"much as the leaves; with master weights "
+            f"{2 * gib['leaves'] + gib['master'] + gib['moments']:.2f} GiB, "
+            f"bf16 state (no masters, moments in bf16) "
+            f"{gib['leaves'] * (2 + 2 * (opt == 'adamw')):.2f} GiB")
+        hist, launches, peak = run_counted(f"fo {opt} {depth} layers", spec,
+                                           trainer=trainer)
+        if launches != {"zo_axpy_2d": 0, "flash_attention": depth * 2,
+                        "pmatmul_stack": 0, "pmatmul": 0}:
+            raise SystemExit(f"fo {opt}: launches {launches}")
+        if any(m is None and t.dtype == torch.bfloat16 for (_, _, t), m
+               in zip(trainer.state.leaves, trainer.state.master)):
+            raise SystemExit(f"fo {opt}: a bf16 leaf has no float32 master")
+        del trainer, hist
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_resume():
@@ -873,7 +1243,7 @@ SOURCES = {
 
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile",
-          "estimators", "momentum", "fo", "resume")
+          "estimators", "momentum", "tasks", "peft", "fo", "resume")
 
 
 def main() -> int:
@@ -918,9 +1288,15 @@ def main() -> int:
         phase_estimators(hold, cfg)
     if "momentum" in phases:
         phase_momentum(hold, cfg)
+    if "tasks" in phases:
+        phase_tasks(hold, cfg)
+    if "peft" in phases:
+        phase_peft(hold, cfg)
+    hold.clear()                     # FO builds its own cut weights
+    gc.collect()
+    torch.cuda.empty_cache()
     if "fo" in phases:
-        phase_fo(hold, cfg)
-    hold.clear()
+        phase_fo(cfg)
     if "resume" in phases:
         phase_resume()
     kernels = []

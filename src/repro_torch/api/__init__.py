@@ -6,12 +6,13 @@
         "model.variant": "full", "runtime.backend": "pallas",
         "runtime.forward_backend": "virtual"})
     result = api.run(spec)            # on the card; device="cpu" for CPU
+    report = api.evaluate(api.with_overrides(spec, {"task.name": "sst2"}))
 
 A spec JSON written by ``repro.api.to_json`` runs unchanged here.
 """
 from repro_torch.api import presets
 from repro_torch.api.presets import PRESETS
-from repro_torch.api.runners import Derived, derive, run
+from repro_torch.api.runners import Derived, derive, evaluate, run, sweep
 from repro_torch.api.spec import (Experiment, Estimator, Model, Optimizer,
                                   Run, Runtime, Serving, SpecError, Swarm,
                                   Task, Telemetry, check_resume_spec,
@@ -21,9 +22,9 @@ from repro_torch.api.validate import validate
 
 __all__ = ["Derived", "Estimator", "Experiment", "Model", "Optimizer",
            "PRESETS", "Run", "Runtime", "Serving", "SpecError", "Swarm",
-           "Task", "Telemetry", "check_resume_spec", "derive",
-           "from_dict", "from_json", "preset", "presets", "run", "to_dict",
-           "to_json", "validate", "with_overrides"]
+           "Task", "Telemetry", "check_resume_spec", "derive", "evaluate",
+           "from_dict", "from_json", "preset", "presets", "run", "sweep",
+           "to_dict", "to_json", "validate", "with_overrides"]
 
 
 def preset(name: str) -> Experiment:

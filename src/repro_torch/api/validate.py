@@ -1,21 +1,24 @@
 """Spec validation of the port (counterpart of ``repro/api/validate.py``).
 
-Accepts what the port runs: training of the OPT family on the synthetic
-task, single process, in every optimizer mode (``zo`` with any
-estimator, ``zo_momentum``, ``fo``), any axpy backend, any forward
-backend, the loss-shard quorum and checkpoint/resume, under the
-reference's rules.  Registry tasks, PEFT, meshes, the swarm and
-telemetry raise :class:`SpecError` naming the field and saying "not yet
-ported", before any parameter is allocated.
+Accepts what the port runs: training and evaluation of the OPT family on
+the synthetic task or a registry task, single process, in every
+optimizer mode (``zo`` with any estimator, ``zo_momentum``, ``fo``),
+over the full model or a PEFT tree (LoRA, prefix), any axpy backend, any
+forward backend, the loss-shard quorum and checkpoint/resume, under the
+reference's rules.  Meshes, the swarm and telemetry raise
+:class:`SpecError` naming the field and saying "not yet ported", before
+any parameter is allocated.
 """
 from repro_torch import configs
-from repro_torch.api.spec import Experiment, SpecError
+from repro_torch import tasks as tasks_mod
+from repro_torch.api.spec import Experiment, SpecError, UnknownTaskError
 from repro_torch.estimators import costs
 
 MODES = ("zo", "zo_momentum", "fo")
 POLICIES = ("stratified", "uniform")
 BACKENDS = ("dense", "scan", "gather", "pallas")
 FO_OPTIMIZERS = ("sgd", "momentum", "adamw")
+PEFTS = (None, "lora", "prefix")
 SCHEDULES = ("constant",)
 
 
@@ -55,7 +58,10 @@ def validate(spec: Experiment):
     _require(m.seq_len - 1 <= mcfg.max_seq, "model.seq_len",
              f"must be <= max_seq + 1 = {mcfg.max_seq + 1}, got {m.seq_len}")
 
-    _ported(t.name is None, "task.name", f"registry task {t.name!r}")
+    if t.name is not None and t.name not in tasks_mod.names():
+        raise UnknownTaskError(
+            "task.name", f"unknown task {t.name!r}; registered: "
+                         f"{tasks_mod.names()}")
     _require(t.n_classes >= 2, "task.n_classes",
              f"must be >= 2, got {t.n_classes}")
     _require(0.0 < t.signal_rate <= 1.0, "task.signal_rate",
@@ -100,8 +106,13 @@ def validate(spec: Experiment):
              "runtime.forward_backend",
              f"unknown forward_backend {rt.forward_backend!r}; pick from "
              f"{costs.FORWARD_BACKENDS}")
-    _ported(rt.peft is None, "runtime.peft", f"PEFT {rt.peft!r}")
     _ported(rt.mesh == "single", "runtime.mesh", f"mesh {rt.mesh!r}")
+    _require(rt.peft in PEFTS, "runtime.peft",
+             f"unknown peft {rt.peft!r}; pick from {PEFTS}")
+    _require(rt.lora_rank >= 1, "runtime.lora_rank",
+             f"must be >= 1, got {rt.lora_rank}")
+    _require(rt.prefix_tokens >= 1, "runtime.prefix_tokens",
+             f"must be >= 1, got {rt.prefix_tokens}")
     _require(rt.n_loss_shards >= 1, "runtime.n_loss_shards",
              f"must be >= 1, got {rt.n_loss_shards}")
     _require(0.0 < rt.quorum <= 1.0, "runtime.quorum",
@@ -110,6 +121,9 @@ def validate(spec: Experiment):
         _require(o.policy == "stratified", "optimizer.policy",
                  "runtime.backend='gather' requires the stratified policy")
     if rt.forward_backend != "materialized":
+        _require(rt.peft is None, "runtime.peft",
+                 "forward_backend='virtual' covers full-parameter ZO only "
+                 "(no PEFT merge)")
         _require(o.mode == "zo", "optimizer.mode",
                  "forward_backend='virtual' requires mode='zo'")
 

@@ -31,6 +31,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import zo
+
 _BF16 = np.dtype("V2")
 
 
@@ -51,8 +53,9 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def flatten(params) -> Dict[str, torch.Tensor]:
-    """``{path: tensor}`` of a parameter module, the reference's keys."""
-    return {n.replace(".", "/"): p for n, p in params.named_parameters()}
+    """``{path: tensor}`` of a parameter module or a PEFT dict tree, the
+    reference's keys."""
+    return dict(zo.leaf_items(params))
 
 
 class CheckpointManager:

@@ -4,8 +4,9 @@ The optimizer sees parameters through a :class:`ZOSpec`, which labels
 each leaf as *always-perturbed* (embeddings, final norm) or *stacked over
 a layer group* (axis 0 = the layers of one homogeneous block group).
 Leaf paths are ``named_parameters()`` names with ``.`` replaced by
-``/``, which are the reference's tree paths (``zo._path_str``), so the
-z streams keyed by them are the reference's.
+``/`` (or, for a PEFT dict tree, its keys joined by ``/``), which are
+the reference's tree paths (``zo._path_str``), so the z streams keyed
+by them are the reference's.
 
 Selection runs on the host: masks are (L_g,) CPU bool tensors and
 active index vectors CPU int64 tensors, pure functions of the step seed.
@@ -26,8 +27,22 @@ from repro_torch.kernels import ops as kops
 
 
 def leaf_items(params):
-    """(path, tensor) pairs of a module's parameters in ``/`` notation."""
-    return [(n.replace(".", "/"), p) for n, p in params.named_parameters()]
+    """(path, tensor) pairs in ``/`` notation: a module's parameters, or
+    the leaves of a dict tree by sorted key as the reference's dicts
+    flatten (the PEFT trees: ``stages/s0/b0/mix/wq/A``, ...)."""
+    if isinstance(params, torch.nn.Module):
+        return [(n.replace(".", "/"), p) for n, p in params.named_parameters()]
+    out = []
+
+    def walk(node, prefix):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                walk(node[k], f"{prefix}{k}/")
+            else:
+                out.append((f"{prefix}{k}", node[k]))
+
+    walk(params, "")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

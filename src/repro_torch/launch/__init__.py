@@ -1,0 +1,2 @@
+"""Launch surface of the port (counterpart of ``repro/launch``):
+``python -m repro_torch.launch train|evaluate|specs``."""

@@ -99,17 +99,28 @@ def _mm(pc):
 
 def attn_fwd(cfg, p, x, *, pc=None):
     """Causal self-attention block in train mode (learned positions are
-    added by the caller; OPT has no rope)."""
+    added by the caller; OPT has no rope).  Prefix tuning's ``pk``/``pv``
+    (P, KV, dh) leaves, when present, are P always-visible key/value
+    positions ahead of the sequence (K2 at ``k_offset = -P``)."""
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if pc is not None and "pk" in p:
+        raise NotImplementedError(
+            "virtual perturbation does not cover prefix-KV leaves")
     mm = _mm(pc)
     h = (apply_norm(cfg, p["norm"], x) if pc is None
          else pc.apply_norm(cfg, p["norm"], x, "norm"))
     q = mm(h, p["wq"], "wq").reshape(B, S, KV, H // KV, dh)
     k = mm(h, p["wk"], "wk").reshape(B, S, KV, dh)
     v = mm(h, p["wv"], "wv").reshape(B, S, KV, dh)
-    o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
-                        k_chunk=cfg.attn_k_chunk)
+    k_offset = 0
+    if "pk" in p:
+        P = p["pk"].shape[0]
+        k = torch.cat([p["pk"].to(k.dtype).expand(B, P, KV, dh), k], dim=1)
+        v = torch.cat([p["pv"].to(v.dtype).expand(B, P, KV, dh), v], dim=1)
+        k_offset = -P
+    o = flash_attention(q, k, v, causal=True, k_offset=k_offset,
+                        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     return mm(o.reshape(B, S, H * dh), p["wo"], "wo").to(x.dtype)
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import zo
 from repro_torch.fused import ref as fused_ref
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -126,6 +127,16 @@ def _leaf_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
     return F32 if "norm/" in path else getattr(torch, cfg.dtype)
 
 
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A numpy array (the reference's ``np.asarray`` of a jax array) as a
+    CPU tensor of its dtype; bfloat16 arrays are taken bit for bit."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def params_from_numpy(cfg: ModelConfig, flat: Dict[str, np.ndarray],
                       device) -> LM:
     """``{path: ndarray}`` (the reference's checkpoint keys,
@@ -135,30 +146,57 @@ def params_from_numpy(cfg: ModelConfig, flat: Dict[str, np.ndarray],
     _check_supported(cfg)
     tree: Dict = {}
     for path, arr in flat.items():
-        arr = np.asarray(arr)
-        if arr.dtype.name == "bfloat16":
-            t = torch.from_numpy(arr.view(np.uint16).copy()).view(
-                torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(arr))
         node = tree
         *parents, leaf = path.split("/")
         for k in parents:
             node = node.setdefault(k, {})
-        node[leaf] = t.to(device=device, dtype=_leaf_dtype(cfg, path))
+        node[leaf] = tensor_from_numpy(arr).to(
+            device=device, dtype=_leaf_dtype(cfg, path))
     return LM(cfg, tree)
 
 
-def params_to_numpy(params: LM) -> Dict[str, np.ndarray]:
-    """The port's parameters -> ``{path: ndarray}`` (bfloat16 leaves come
-    back as float32, which holds them exactly)."""
+def params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """The port's parameters (an ``LM`` or a PEFT dict tree) ->
+    ``{path: ndarray}`` (bfloat16 leaves come back as float32, which
+    holds them exactly)."""
     out = {}
-    for name, p in params.named_parameters():
+    for path, p in zo.leaf_items(params):
         t = p.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.to(F32)
-        out[name.replace(".", "/")] = t.numpy()
+        out[path] = t.numpy()
     return out
+
+
+class Overlay:
+    """``base`` (an ``LM`` or one of its nodes) read with the leaves of
+    ``leaves`` ({path from the root: tensor}) in place of, or beside, its
+    own: what PEFT hands the forward (merged LoRA stacks, prefix keys)
+    without copying a base leaf.  Reads like the tree it wraps:
+    ``params["stages"]["s0"]["b0"].layer(l)``."""
+
+    def __init__(self, base, leaves: Dict[str, torch.Tensor], prefix=""):
+        self._base, self._leaves, self._prefix = base, leaves, prefix
+
+    def __getitem__(self, key):
+        path = self._prefix + key
+        if path in self._leaves:
+            return self._leaves[path]
+        child = self._base[key]
+        if any(p.startswith(path + "/") for p in self._leaves):
+            return Overlay(child, self._leaves, path + "/")
+        return child
+
+    def layer(self, l: int) -> Dict:
+        out = self._base.layer(l)
+        for path, t in self._leaves.items():
+            if path.startswith(self._prefix):
+                *parents, leaf = path[len(self._prefix):].split("/")
+                node = out
+                for k in parents:
+                    node = node.setdefault(k, {})
+                node[leaf] = t[l]
+        return out
 
 
 def grad_leaves(params: LM):

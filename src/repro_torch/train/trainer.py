@@ -1,8 +1,11 @@
 """Training driver of the port (counterpart of ``repro/train/trainer.py``):
 ZO (any estimator), ZO momentum and first-order (the paper's FT rows) on
-the synthetic task; the log and eval cadence; best parameters by
-validation loss (the paper's protocol); checkpoints every ``ckpt_every``
-steps and resume from the latest; and the loss-shard quorum.
+the synthetic task or a registry task (``tasks``), over the full model
+or a PEFT tree (LoRA, prefix); the log and eval cadence; the best
+parameters (highest task metric for a registry task, the SuperGLUE
+protocol; lowest validation loss otherwise, the paper's); checkpoints
+every ``ckpt_every`` steps and resume from the latest; and the
+loss-shard quorum.
 
 The step seeds and batches are the reference's: ``base_seed =
 fold(seed, 0xC0FFEE)``, step seed ``fold(base_seed, t)``, and batches
@@ -13,9 +16,17 @@ the uninterrupted run.  As in the reference, estimator and optimizer
 state (importance scores, the momentum ring, FO moments) is not
 checkpointed and starts afresh on resume.
 
+PEFT: ZO, FO and checkpoints run over the trainable tree alone; the
+loss reads the model through ``_to_model`` (``lora.merge`` or
+``prefix.inject`` over the base parameters, which are never changed).
+
 Quorum (``n_loss_shards`` > 1, ``quorum`` < 1): the batch is split into
 ``n_loss_shards`` shards and each loss averages the shards that
 "arrived", a subset fixed by the batch's content as in the reference.
+
+The best parameters are kept as a host copy (``host_copy``), as the
+reference keeps numpy arrays: at OPT-13B that is 25.7 GB of host memory
+and one device-to-host copy for each improvement.
 
 The trainer runs on the card unless given ``device="cpu"``.
 """
@@ -29,12 +40,13 @@ import numpy as np
 import torch
 
 from repro_torch import estimators, resolve_device
+from repro_torch import tasks as tasks_mod
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import fo, rng, zo, zo_adaptive
 from repro_torch.data import synthetic
 from repro_torch.models import lm
-
-MODEL_BATCH_KEYS = ("tokens", "labels", "loss_mask")
+from repro_torch.peft import lora as lora_mod
+from repro_torch.peft import prefix as prefix_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +62,7 @@ class TrainConfig:
     keep_ckpts: int = 2
     n_loss_shards: int = 1        # straggler simulation
     quorum: float = 1.0
+    peft: Optional[str] = None    # None | lora | prefix
 
 
 def quorum_arrived(labels: torch.Tensor, n_shards: int, n_ok: int):
@@ -78,34 +91,86 @@ def quorum_loss_fn(base_loss, n_shards: int, quorum: float):
     return loss_fn
 
 
+def host_copy(params) -> Dict[str, torch.Tensor]:
+    """``{path: CPU tensor}`` copy of a parameter tree, in its dtypes."""
+    return {path: t.detach().to("cpu", copy=True)
+            for path, t in zo.leaf_items(params)}
+
+
+@torch.no_grad()
+def load_host_(params, host: Dict[str, torch.Tensor]):
+    """Copy a :func:`host_copy` back into ``params``'s tensors in place."""
+    for path, t in zo.leaf_items(params):
+        t.copy_(host[path])
+    return params
+
+
 class Trainer:
     """Built from a spec with :meth:`from_spec`.  ``params`` (an
     ``lm.LM``) replaces the random initial weights, e.g. weights exported
-    from the reference with ``lm.params_from_numpy``; it is trained in
+    from the reference with ``lm.params_from_numpy``; ``trainable`` (a
+    PEFT dict tree, e.g. the reference's through ``peft.from_numpy``)
+    replaces the random initial LoRA or prefix tree.  The trainable tree
+    (``self.params``: the model itself without PEFT) is trained in
     place."""
 
     @classmethod
-    def from_spec(cls, spec, device=None, params=None) -> "Trainer":
+    def from_spec(cls, spec, device=None, params=None,
+                  trainable=None) -> "Trainer":
         from repro_torch.api import runners
         d = runners.derive(spec)
         return cls(d.model_cfg, d.task, d.tcfg, d.est_cfg, fo_cfg=d.fo_cfg,
-                   device=device, params=params, _spec=spec, _derived=d)
+                   lora_cfg=d.lora_cfg, prefix_cfg=d.prefix_cfg,
+                   device=device, params=params, trainable=trainable,
+                   _spec=spec, _derived=d)
 
-    def __init__(self, model_cfg, task: synthetic.TaskConfig,
-                 tcfg: TrainConfig, est_cfg: estimators.EstimatorConfig,
-                 fo_cfg: fo.FOConfig = fo.FOConfig(), device=None,
-                 params: Optional[lm.LM] = None, _spec=None, _derived=None):
-        if tcfg.mode != "zo" and est_cfg.forward_backend != "materialized":
-            raise ValueError("forward_backend='virtual' requires mode='zo'")
+    def __init__(self, model_cfg, task, tcfg: TrainConfig,
+                 est_cfg: estimators.EstimatorConfig,
+                 fo_cfg: fo.FOConfig = fo.FOConfig(),
+                 lora_cfg: lora_mod.LoRAConfig = lora_mod.LoRAConfig(),
+                 prefix_cfg: prefix_mod.PrefixConfig = (
+                     prefix_mod.PrefixConfig()),
+                 device=None, params: Optional[lm.LM] = None,
+                 trainable=None, _spec=None, _derived=None):
+        if est_cfg.forward_backend != "materialized":
+            if tcfg.peft:
+                raise ValueError("forward_backend='virtual' covers "
+                                 "full-parameter ZO only (no PEFT merge)")
+            if tcfg.mode != "zo":
+                raise ValueError("forward_backend='virtual' requires "
+                                 "mode='zo'")
         self.experiment, self.derived = _spec, _derived
         self.mcfg, self.task, self.tcfg = model_cfg, task, tcfg
         self.est_cfg, self.fo_cfg = est_cfg, fo_cfg
+        self.registry_task = (task if isinstance(task, tasks_mod.CompiledTask)
+                              else None)
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
             params = lm.init_params(model_cfg, gen, self.device)
-        self.params = params
-        self.spec = zo.build_spec(params, lm.zo_group_fn)
+        self.base_params = params
+        # the trainable tree and the model the loss reads through it
+        gen = torch.Generator(device=self.device)
+        if tcfg.peft == "lora":
+            if trainable is None:
+                trainable = lora_mod.init_lora(
+                    params, lora_cfg,
+                    gen.manual_seed(rng.fold_py(tcfg.seed, 1)))
+            group_fn = lora_mod.lora_group_fn
+            self._to_model = lambda tr: lora_mod.merge(params, tr, lora_cfg)
+        elif tcfg.peft == "prefix":
+            if trainable is None:
+                trainable = prefix_mod.init_prefix(
+                    model_cfg, gen.manual_seed(rng.fold_py(tcfg.seed, 2)),
+                    prefix_cfg, self.device)
+            group_fn = prefix_mod.prefix_group_fn
+            self._to_model = lambda tr: prefix_mod.inject(params, tr)
+        else:
+            trainable = params
+            group_fn = lm.zo_group_fn
+            self._to_model = lambda tr: tr
+        self.params = trainable
+        self.spec = zo.build_spec(self.params, group_fn)
         self.loss_fn = self._make_loss(grad=tcfg.mode == "fo")
         self._eval_loss = self._make_loss(grad=False)
         self._build_step()
@@ -118,7 +183,8 @@ class Trainer:
         mcfg, tcfg = self.mcfg, self.tcfg
 
         def base_loss(p, b, perturb=None):
-            return lm.lm_loss(mcfg, p, b, perturb=perturb, grad=grad)
+            return lm.lm_loss(mcfg, self._to_model(p), b, perturb=perturb,
+                              grad=grad)
 
         if tcfg.n_loss_shards > 1 and tcfg.quorum < 1.0:
             return quorum_loss_fn(base_loss, tcfg.n_loss_shards, tcfg.quorum)
@@ -143,14 +209,20 @@ class Trainer:
 
     # ------------------------------------------------------------- data
     def make_dataset(self, n: int, seed_shift: int = 0):
+        """Dataset in the synthetic batch format, from either task type."""
+        if self.registry_task is not None:
+            t = self.registry_task
+            return t.make_dataset(n, seed=t.seed + seed_shift)
         return synthetic.make_dataset(
             dataclasses.replace(self.task, seed=self.task.seed + seed_shift)
             if seed_shift else self.task, n)
 
     def _model_batch(self, np_batch, n=None):
+        """Strip eval-only keys; the loss sees only token arrays."""
         return {k: torch.as_tensor(v if n is None else v[:n],
                                    device=self.device)
-                for k, v in np_batch.items() if k in MODEL_BATCH_KEYS}
+                for k, v in np_batch.items()
+                if k in tasks_mod.MODEL_BATCH_KEYS}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -172,6 +244,8 @@ class Trainer:
             if saved is not None:
                 api.check_resume_spec(saved, self.experiment)
         _, start, _, _ = self.ckpt.restore(params)
+        if self.tcfg.mode == "fo":      # master copies of the restored leaves
+            self.state = fo.init_state(params, self.fo_cfg)
         return start
 
     # ------------------------------------------------------------ train
@@ -189,10 +263,14 @@ class Trainer:
         history = {"step": [], "loss": [], "projected_grad": [],
                    "active_layers": [], "step_seconds": [], "val_loss": [],
                    "val_step": [], "val_acc": [], "wall": []}
+        if self.registry_task is not None:
+            history["metric_name"] = self.registry_task.metric
+        # best score, maximized: the task metric for registry tasks
+        # (SuperGLUE protocol), -val_loss otherwise (the paper's protocol)
         best = (-np.inf, None, -1)
         t0 = time.perf_counter()
         stream_data = {k: v for k, v in train_data.items()
-                       if k in MODEL_BATCH_KEYS}
+                       if k in tasks_mod.MODEL_BATCH_KEYS}
         stream = synthetic.batches(stream_data, tcfg.batch_size, tcfg.steps,
                                    seed=tcfg.seed + 7)
         for t, np_batch in enumerate(stream):
@@ -221,8 +299,9 @@ class Trainer:
                 history["val_step"].append(t + 1)
                 history["val_loss"].append(vl)
                 history["val_acc"].append(va)
-                if -vl > best[0]:
-                    best = (-vl, lm.params_to_numpy(params), t + 1)
+                score = va if self.registry_task is not None else -vl
+                if score > best[0]:
+                    best = (score, host_copy(params), t + 1)
             if (self.ckpt and tcfg.ckpt_every
                     and (t + 1) % tcfg.ckpt_every == 0):
                 self.ckpt.save(t + 1, params, base_seed,
@@ -236,12 +315,18 @@ class Trainer:
         return history
 
     def evaluate(self, params, val_data, max_examples=256):
-        """(val_loss, verbalizer accuracy or -1 for generation tasks)."""
+        """Returns (val_loss, metric): the registry task's primary metric,
+        or verbalizer accuracy for synthetic tasks (-1 if n/a)."""
         n = min(max_examples, val_data["tokens"].shape[0])
         vl = float(self._eval_loss(params, self._model_batch(val_data, n)))
-        if self.task.kind in ("classification", "multiple_choice"):
+        if self.registry_task is not None:
+            va = self.registry_task.evaluate(
+                self.mcfg, self._to_model(params), val_data, lm,
+                max_examples=n)
+        elif self.task.kind in ("classification", "multiple_choice"):
             va = synthetic.classification_accuracy(
-                self.mcfg, params, val_data, self.task, lm, max_examples=n)
+                self.mcfg, self._to_model(params), val_data, self.task, lm,
+                max_examples=n)
         else:
             va = -1.0
         return vl, va

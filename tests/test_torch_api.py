@@ -19,6 +19,8 @@ from repro_torch.models import lm as tlm
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 
 @pytest.mark.parametrize("name", sorted(japi.PRESETS))
 def test_preset_json_identical(name):
@@ -30,10 +32,10 @@ def test_preset_json_identical(name):
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
     ({"telemetry.enabled": True}, "telemetry.enabled"),
-    ({"runtime.peft": "lora"}, "runtime.peft"),
+    ({"telemetry.runs_dir": "runs"}, "telemetry.enabled"),
     ({"swarm.workers": 2}, "swarm.workers"),
-    ({"runtime.peft": "prefix"}, "runtime.peft"),
-    ({"task.name": "sst2"}, "task.name"),
+    ({"swarm.n_shards": 2}, "swarm.workers"),
+    ({"model.arch": "xlstm-350m"}, "model.arch"),
     ({"model.arch": "qwen3-14b"}, "model.arch"),
 ])
 def test_unported_fields_raise(override, path):
@@ -41,6 +43,21 @@ def test_unported_fields_raise(override, path):
     with pytest.raises(tapi.SpecError, match="not yet ported") as e:
         tapi.validate(spec)
     assert e.value.path == path
+
+
+@pytest.mark.parametrize("override", [
+    {"runtime.peft": "lora"}, {"runtime.peft": "prefix"},
+    {"task.name": "sst2"}])
+def test_ported_fields_validate_like_the_reference(override):
+    """The fields this slice ports (PEFT, registry tasks) validate and
+    derive the reference's configs."""
+    d = tapi.derive(tapi.with_overrides(tapi.preset("lezo-opt13b"),
+                                        override))
+    jd = japi.derive(japi.with_overrides(japi.preset("lezo-opt13b"),
+                                         override))
+    assert d.tcfg.peft == jd.tcfg.peft
+    assert type(d.task).__name__ == type(jd.task).__name__
+    assert getattr(d.task, "name", None) == getattr(jd.task, "name", None)
 
 
 def test_main_path_spec_validates():

@@ -24,6 +24,8 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import opt as topt
 from repro_torch.models import lm as tlm
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 CFG = topt.opt_tiny(layers=2, d_model=32, vocab=64)
 
 

@@ -24,6 +24,8 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels import zo_axpy as kzo
 from repro_torch.models import lm
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 pytestmark = pytest.mark.cuda
 
 
@@ -256,6 +258,36 @@ def test_flash_backward_matches_autograd_of_plain(dev):
         _close(got, want, steps=2)
 
 
+@pytest.mark.parametrize("kind", ["lora", "prefix"])
+def test_peft_forward_on_the_card(dev, kind):
+    """A bf16 model read through a LoRA merge or prefix keys (K2 at
+    k_offset = -P): the card's forward against the CPU's plain one."""
+    from repro_torch.peft import lora, prefix
+    cfg = opt.opt_tiny(layers=2, d_model=128, vocab=512).with_(
+        dtype="bfloat16")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_gpu = lm.params_from_numpy(cfg, lm.params_to_numpy(p_cpu), dev)
+    gen = torch.Generator().manual_seed(4)
+    if kind == "lora":
+        lcfg = lora.LoRAConfig()
+        tree = lora.init_lora(p_cpu, lcfg, gen)
+        for ab in tree.values():
+            ab["B"].normal_(generator=gen).mul_(0.05)
+        model = lambda p, t: lora.merge(p, t, lcfg)
+    else:
+        tree = prefix.init_prefix(cfg, gen, prefix.PrefixConfig(), "cpu")
+        model = prefix.inject
+    tree_gpu = {k: ({n: x.to(dev) for n, x in v.items()}
+                    if isinstance(v, dict) else v.to(dev))
+                for k, v in tree.items()}
+    toks = torch.randint(0, 512, (3, 40), generator=gen)
+    want = lm.forward(cfg, model(p_cpu, tree), toks)
+    kfa.counter.launches = 0
+    got = lm.forward(cfg, model(p_gpu, tree_gpu), toks.to(dev))
+    assert kfa.counter.launches == cfg.num_layers
+    _close(got.cpu(), want, steps=4)
+
+
 def test_port_loads_no_jax_or_reference():
     """Importing every port module (and chip_smoke.py) loads no module
     of jax or of the JAX package: checked in a fresh interpreter."""
@@ -268,6 +300,8 @@ def test_port_loads_no_jax_or_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__,\n"
         "                               'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import repro_torch.tasks, repro_torch.peft, repro_torch.launch\n"
+        "import repro_torch.launch.cli, repro_torch.peft.lora\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -33,6 +33,8 @@ from repro_torch.core import zo as tzo
 from repro_torch.fused import matmul as fmm
 from repro_torch.models import lm as tlm
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 LR = 2e-2
 
 

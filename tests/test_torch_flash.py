@@ -12,6 +12,8 @@ from repro.kernels import flash_attn as jfa
 from repro.models import layers as jl
 from repro_torch.models import layers as tl
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 CASES = [
     # B, Sq, Sk, KV, G, dh, q_offset, k_offset, q_chunk, k_chunk
     (2, 16, 16, 2, 1, 8, 0, 0, 8, 8),        # plain causal, two tiles

@@ -12,6 +12,8 @@ from repro.fused import ref as jref
 from repro_torch.fused import matmul as tmm
 from repro_torch.fused import ref as tref
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 SEED = 0x5EED
 
 

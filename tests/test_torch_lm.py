@@ -18,6 +18,8 @@ from repro_torch.configs import opt as topt
 from repro_torch.core import zo as tzo
 from repro_torch.models import lm as tlm
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 EPS = 1e-3
 SEED = 13
 

@@ -1,7 +1,7 @@
 """Port parity of the optimizers beyond the ZO estimators: ZO momentum
 (and its Adam variant), the first-order baselines (SGD, momentum, AdamW
-with clipping), and the trainer's loss-shard quorum, against the JAX
-package on a tiny float32 OPT.
+with clipping; in bf16 with float32 master weights), and the trainer's
+loss-shard quorum, against the JAX package on a tiny OPT.
 
 Tolerances: losses within rtol 1e-5; teacher-forced updates (the
 reference's projected gradient or gradients fed to the port's update)
@@ -9,7 +9,13 @@ at atol 1e-6; the port's autograd gradients against ``jax.grad`` at
 rtol 1e-4 (atol 1e-6 near zero: sums in another order); the quorum's
 arrived subset bit for bit; trajectories through ``api.run`` within
 rtol 1e-3, the bound ``test_torch_api`` uses (g = (l+ - l-)/2eps
-multiplies loss rounding by 500).  The momentum ring is also held
+multiplies loss rounding by 500).  In bf16, FO master weights and
+moments within 1 float32 ulp of the reference's float32 parameters and
+moments (teacher-forced, the reference's gradients; the CPU update
+rounds as XLA's CPU backend does), the card's plain float32 update
+within atol 1e-6 (moments: 1e-6 of the leaf's largest), and 8-step FO
+losses within rtol 2e-2 (the reference's forward runs in float32 after
+its first update, the port's in bf16).  The momentum ring is also held
 against an explicit momentum buffer within the port (the reference's
 atol 5e-5, rtol 5e-4).
 """
@@ -38,6 +44,8 @@ from repro_torch.core import zo as tzo
 from repro_torch.core import zo_adaptive as tada
 from repro_torch.models import lm as tlm
 from repro_torch.train import trainer as ttrainer
+
+torch.set_num_threads(2)              # six xdist workers share the CPUs
 
 
 @pytest.fixture(scope="module")
@@ -214,6 +222,178 @@ def test_fo_step_runs_autograd_through_the_model(setup):
     assert all(np.isfinite(v).all() for v in tlm.params_to_numpy(tp).values())
 
 
+# ----------------------------------------------- FO with float32 masters
+@pytest.fixture(scope="module")
+def setup_bf16():
+    jc = jopt.opt_tiny(layers=2, d_model=32, vocab=128).with_(
+        dtype="bfloat16")
+    tc = topt.opt_tiny(layers=2, d_model=32, vocab=128).with_(
+        dtype="bfloat16")
+    jp = jlm.init_params(jc, jax.random.PRNGKey(9))
+    r = np.random.default_rng(9)
+    batches = []
+    for _ in range(8):
+        toks = r.integers(0, 128, (8, 12)).astype(np.int32)
+        batches.append({"tokens": toks, "labels": np.roll(toks, -1, axis=1),
+                        "loss_mask": np.ones((8, 12), np.float32)})
+    return jc, tc, jp, batches
+
+
+def _ulps(got, want):
+    """|got - want| in float32 ulps of want."""
+    want = np.asarray(want, np.float32)
+    return np.abs(np.asarray(got, np.float32) - want) / np.spacing(
+        np.maximum(np.abs(want), np.float32(1e-30)))
+
+
+def _per_layer(state, arrays):
+    """Reference arrays by path -> one per FO leaf (stacked ones split)."""
+    return [arrays[p] if layer is None else arrays[p][layer]
+            for p, layer, _ in state.leaves]
+
+
+def _teacher(grads):
+    """A loss whose gradient is ``grads``: drives the reference's own
+    ``make_fo_step`` with given gradients (teacher forcing)."""
+    @jax.custom_vjp
+    def f(p):
+        return jnp.float32(0.0)
+
+    f.defvjp(lambda p: (jnp.float32(0.0), None), lambda _, ct: (grads,))
+    return lambda p, b: f(p)
+
+
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_fo_master_weights_teacher_forced(setup_bf16, opt):
+    """bf16 parameters under a clip scale: the reference's jitted update
+    makes them float32; the port's float32 masters and moments equal
+    them within 1 float32 ulp after 1 and 3 steps of the reference's
+    gradients, and the bf16 leaves are the masters rounded.  The clip
+    never binds here (its scale is exactly 1.0 in both packages; the
+    global norms are float32 sums in different orders, which the float32
+    teacher-forced test above covers)."""
+    jc, tc, jp, batches = setup_bf16
+    kw = dict(optimizer=opt, lr=1e-2, weight_decay=0.01, grad_clip=1e6)
+    jcfg, tcfg = jfo.FOConfig(**kw), tfo.FOConfig(**kw)
+    jgrad = jax.jit(jax.grad(lambda p, b: jlm.lm_loss(jc, p, b)))
+    jst = jfo.init_state(jp, jcfg)
+    tp = tlm.params_from_numpy(tc, _flat(jp), "cpu")
+    tst = tfo.init_state(tp, tcfg)
+    assert all((m is None) == (t.dtype == torch.float32)
+               for (_, _, t), m in zip(tst.leaves, tst.master))
+    for t in range(3):
+        g = jgrad(jp, _jb(batches[t]))
+        jp, jst, _ = jax.jit(jfo.make_fo_step(_teacher(g), jcfg))(
+            jp, jst, _jb(batches[t]), jnp.int32(t))
+        tst = tfo.apply_update(tst, [tlm.tensor_from_numpy(x) for x in
+                                     _per_layer(tst, _flat(g))], tcfg,
+                               tcfg.lr)
+        if t not in (0, 2):
+            continue
+        for (path, layer, leaf), m, w in zip(tst.leaves, tst.master,
+                                             _per_layer(tst, _flat(jp))):
+            assert w.dtype == np.float32, path
+            got = (leaf if m is None else m).detach().float().numpy()
+            assert _ulps(got, w).max() <= 1, (t, path, layer)
+            if m is not None:
+                assert torch.equal(leaf.detach(), m.to(leaf.dtype))
+        names = {"sgd": (), "momentum": ("mu",), "adamw": ("mu", "nu")}
+        for name in names[opt]:
+            for (path, layer, _), mt, w in zip(
+                    tst.leaves, getattr(tst, name),
+                    _per_layer(tst, _flat(getattr(jst, name)))):
+                assert mt.dtype == torch.float32
+                assert _ulps(mt.numpy(), w).max() <= 1, (t, name, path)
+
+
+@pytest.mark.parametrize("opt", ["sgd", "momentum", "adamw"])
+def test_fo_plain_arithmetic_teacher_forced(setup_bf16, opt):
+    """The card's update (``PLAIN``: the reference's source order, each
+    operation rounded to float32), driven on the CPU, against the
+    reference's jitted update on the same gradients for 3 steps.  XLA
+    fuses the multiply-adds, so the two round differently: masters
+    within atol 1e-6 (the float32 teacher-forced bound above; 8.9e-8
+    read), moments within 1e-6 of the leaf's largest moment (1.4e-7
+    read)."""
+    jc, tc, jp, batches = setup_bf16
+    kw = dict(optimizer=opt, lr=1e-2, weight_decay=0.01, grad_clip=1e6)
+    jcfg, tcfg = jfo.FOConfig(**kw), tfo.FOConfig(**kw)
+    jgrad = jax.jit(jax.grad(lambda p, b: jlm.lm_loss(jc, p, b)))
+    jst = jfo.init_state(jp, jcfg)
+    tp = tlm.params_from_numpy(tc, _flat(jp), "cpu")
+    tst = tfo.init_state(tp, tcfg)
+    names = {"sgd": (), "momentum": ("mu",), "adamw": ("mu", "nu")}[opt]
+    for t in range(3):
+        g = jgrad(jp, _jb(batches[t]))
+        jp, jst, _ = jax.jit(jfo.make_fo_step(_teacher(g), jcfg))(
+            jp, jst, _jb(batches[t]), jnp.int32(t))
+        tst = tfo.apply_update(tst, [tlm.tensor_from_numpy(x) for x in
+                                     _per_layer(tst, _flat(g))], tcfg,
+                               tcfg.lr, arith=tfo.PLAIN)
+        for (path, layer, leaf), m, w in zip(tst.leaves, tst.master,
+                                             _per_layer(tst, _flat(jp))):
+            got = (leaf if m is None else m).detach().float().numpy()
+            np.testing.assert_allclose(got, w, rtol=0, atol=1e-6,
+                                       err_msg=f"{t} {path} {layer}")
+        for n in names:
+            for (path, _, _), mt, w in zip(
+                    tst.leaves, getattr(tst, n),
+                    _per_layer(tst, _flat(getattr(jst, n)))):
+                np.testing.assert_allclose(
+                    mt.numpy(), w, rtol=0, atol=1e-6 * np.abs(w).max(),
+                    err_msg=f"{t} {n} {path}")
+
+
+@pytest.mark.parametrize("opt", ["sgd", "momentum"])
+def test_fo_bf16_without_clip_stays_bf16(setup_bf16, opt):
+    """Without a clip scale the reference's SGD/momentum keep bf16
+    parameters, and so does the port: no master copy, moments in bf16."""
+    jc, tc, jp, batches = setup_bf16
+    kw = dict(optimizer=opt, lr=1e-2, grad_clip=None)
+    jst = jfo.init_state(jp, jfo.FOConfig(**kw))
+    jnew, _, _ = jax.jit(jfo.make_fo_step(
+        lambda p, b: jlm.lm_loss(jc, p, b), jfo.FOConfig(**kw)))(
+        jp, jst, _jb(batches[0]), jnp.int32(0))
+    assert [a.dtype for a in jax.tree.leaves(jnew)] == [
+        a.dtype for a in jax.tree.leaves(jp)]
+    tp = tlm.params_from_numpy(tc, _flat(jp), "cpu")
+    st = tfo.init_state(tp, tfo.FOConfig(**kw))
+    assert all(m is None for m in st.master)
+    assert all(m.dtype == t.dtype for (_, _, t), m in zip(
+        st.leaves, st.mu or []))
+    tfo.make_fo_step(lambda p, b: tlm.lm_loss(tc, p, b, grad=True),
+                     tfo.FOConfig(**kw))(tp, st, _tb(batches[0]), 0)
+    assert {n: p.dtype for n, p in tp.named_parameters()} == {
+        n: p.dtype for n, p in tlm.params_from_numpy(
+            tc, _flat(jp), "cpu").named_parameters()}
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adamw"])
+def test_fo_trajectory_bf16_within_band(setup_bf16, opt):
+    """8 steps of both packages from the same bf16 weights and batches.
+    The reference's forward runs in float32 after its first update, the
+    port's stays bf16 (its master weights are float32), so the losses
+    agree within a band: rtol 2e-2."""
+    jc, tc, jp, batches = setup_bf16
+    kw = dict(optimizer=opt, lr=3e-2 if opt == "sgd" else 3e-3)
+    jstep = jax.jit(jfo.make_fo_step(lambda p, b: jlm.lm_loss(jc, p, b),
+                                     jfo.FOConfig(**kw)))
+    jst = jfo.init_state(jp, jfo.FOConfig(**kw))
+    tcfg = tfo.FOConfig(**kw)
+    tp = tlm.params_from_numpy(tc, _flat(jp), "cpu")
+    tstep = tfo.make_fo_step(lambda p, b: tlm.lm_loss(tc, p, b, grad=True),
+                             tcfg)
+    tst = tfo.init_state(tp, tcfg)
+    want, got = [], []
+    for t, b in enumerate(batches):
+        jp, jst, jm = jstep(jp, jst, _jb(b), jnp.int32(t))
+        tp, tst, tm = tstep(tp, tst, _tb(b), t)
+        want.append(float(jm["loss"]))
+        got.append(float(tm["loss"]))
+    np.testing.assert_allclose(got, want, rtol=2e-2)
+    assert want[-1] < want[0] and got[-1] < got[0]   # both learn
+
+
 # ----------------------------------------------------------------- quorum
 @pytest.mark.parametrize("n_sh,quorum", [(4, 0.75), (8, 0.5), (2, 0.5)])
 def test_quorum_arrived_bitwise(setup, n_sh, quorum):
@@ -281,8 +461,8 @@ def test_validator_accepts_presets(name):
 
 
 @pytest.mark.parametrize("override,path", [
-    ({"runtime.peft": "lora"}, "runtime.peft"),
-    ({"task.name": "boolq"}, "task.name"),
+    ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
+    ({"model.arch": "xlstm-350m"}, "model.arch"),
     ({"swarm.n_shards": 2}, "swarm.workers"),
     ({"telemetry.runs_dir": "runs"}, "telemetry.enabled"),
 ])

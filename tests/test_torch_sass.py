@@ -3,8 +3,11 @@ K1's instructions an element, on small hand-written listings in
 ``cuobjdump -sass`` form: the hot path of a vector loop, with slow paths
 (a subroutine call, local memory, float64) left out."""
 import pytest
+import torch
 
 from repro_torch.kernels import sass
+
+torch.set_num_threads(2)              # six xdist workers share the CPUs
 
 
 def _listing(name, rows):

@@ -22,6 +22,8 @@ from repro_torch.core import rng as trng
 from repro_torch.core import zo as tzo
 from repro_torch.models import lm as tlm
 
+torch.set_num_threads(2)              # six xdist workers share the CPUs
+
 LR = 2e-2
 
 
