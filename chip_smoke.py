@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--phases build,rng,parity,train,check,...]
 
-Phases (all by default; ``check`` and ``profile`` need ``train``), each
-of which fails the run (non-zero exit) when it fails:
+Phases (all by default; ``check`` and ``profile`` need ``train``,
+``replay`` needs ``trace``), each of which fails the run (non-zero exit)
+when it fails:
 
 1. build   — compile every CUDA kernel of the main path from
              ``src/repro_torch/csrc`` with ``nvcc`` (one process per
@@ -46,7 +47,25 @@ of which fails the run (non-zero exit) when it fails:
 6. profile — one more main-path step under ``torch.profiler``: device
              time by kernel, each port kernel's device time per launch,
              and the device's idle share of the step.
-7. estimators — the other ZO estimators on OPT-13B at full width and
+7. trace   — the main path's steady state on the weights of ``train``:
+             2 warm-up + 20 steps with telemetry off, then as many with
+             it on (``fence=false``; ring and ``trace.jsonl`` in a
+             temporary run directory), each through ``api.run``: median,
+             min and max of ``step_seconds`` and of the ``train/step``
+             spans; launches equal with telemetry on and off and to
+             ``costs.step_counts``; counters equal to what the steps
+             imply (probes, sweeps, selections, the active-layer gauge,
+             and W tiles and z tiles from K3/K4's grid); the on/off
+             median ratio within 0.80-1.25; the device's idle share over
+             20 steady steps (``torch.profiler``, kernel time); and 4
+             steps with ``fence=true``: the median of each stage span.
+8. replay  — ``launch replay`` of that telemetry-on run on the card, from
+             the weights it started from: every recorded scalar of every
+             step bit for bit, the unstacked leaves bit-equal to the
+             run's; the drain time of one logged step with
+             ``health_norms`` (the exact ‖z‖ at 13B, within 1e-3 of the
+             E‖z‖² = N estimate); the report's stage-timing table.
+9. estimators — the other ZO estimators on OPT-13B at full width and
              depth (the weights of ``train``, or built once from a seed),
              through ``api.run(spec, params=...)``: ``fzoo-opt13b-q16``
              (one_sided, q = 16 probes stacked in one forward, K3 at
@@ -54,25 +73,25 @@ of which fails the run (non-zero exit) when it fails:
              two_point, with the main path's overrides.  Step seconds,
              peak memory and launches by kernel; the launches must equal
              what ``costs.step_counts`` and K3's probe grouping imply.
-8. momentum — ``zo_momentum`` on the same weights, materialized, K1
+10. momentum — ``zo_momentum`` on the same weights, materialized, K1
              sweeps (probe, restore and the K history sweeps), 3 steps.
-9. tasks   — the task registry on fresh seeded weights: the main path on
+11. tasks   — the task registry on fresh seeded weights: the main path on
              ``sst2`` (4 steps, one evaluation of 64 examples), then
              zero-shot ``api.evaluate`` on ``copa`` and ``squad_copy``;
              launches against ``costs.step_counts`` plus the evaluation
              forwards; each scorer with K2 against K2's plain version
              (within 8 bf16 steps), SDPA in K2's place beside it; the
              same read, not gated, on the weights earlier phases trained.
-10. peft   — ZO over a LoRA tree (``lezo-opt13b-lora``) and a prefix tree
+12. peft   — ZO over a LoRA tree (``lezo-opt13b-lora``) and a prefix tree
              (``runtime.peft=prefix``) on the weights of ``tasks``,
              materialized,
              3 steps each: step seconds, peak memory, K1/K2 launches.
-11. fo     — K2's backward against autograd through its plain version at
+13. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-12. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+14. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
 
@@ -772,12 +791,10 @@ def phase_check(spec, cfg, params):
                          "the CPU's by more than 1e-2 relative")
 
 
-def phase_profile(spec, cfg, params, tag="profile"):
-    """One more step of ``spec`` (the main path's by default) under
-    ``torch.profiler``: device time by kernel and the device's idle
-    share of the step's wall time."""
+def step_fn(spec, cfg, params):
+    """``run(t)``: step ``t`` of ``spec``'s ZO step function on
+    ``params`` and one batch on the card, outside the trainer."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import estimators
     from repro_torch.api import runners
     from repro_torch.core import rng, zo
@@ -792,12 +809,23 @@ def phase_profile(spec, cfg, params, tag="profile"):
         lambda p, b, perturb=None: lm.lm_loss(cfg, p, b, perturb=perturb),
         zo.build_spec(params, lm.zo_group_fn), d.est_cfg)
     base = rng.fold_py(spec.run.seed, 0xC0FFEE)
-    step(params, init(), batch, spec.run.steps, base)    # warm
+    return lambda t: step(params, init(), batch, t, base)
+
+
+def phase_profile(spec, cfg, params, tag="profile"):
+    """One more step of ``spec`` (the main path's by default) under
+    ``torch.profiler``: device time by kernel and the device's idle
+    share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run = step_fn(spec, cfg, params)
+    run(spec.run.steps)                                  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(params, init(), batch, spec.run.steps + 1, base)
+        run(spec.run.steps + 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     dev_us = {}                      # device kernels only: an aten op's
@@ -1230,6 +1258,228 @@ def phase_resume():
                          "run bit for bit")
 
 
+TRACE_STEPS, TRACE_WARM = 20, 2     # steady steps, warm-up steps
+
+
+def expected_tiles(cfg, spec, layer_sels):
+    """(w_tile_loads, z_regens) the main path's steps must count, from
+    K3/K4's grid (``fused.matmul.tile_counts``): per step, each layer's
+    six projections as one K3 launch of the +-eps pair (P = 2, one seed),
+    active where the step's recorded ``layer_sel`` says, and the tied
+    head as two K4 launches (one a probe), always active."""
+    from repro_torch.fused import matmul as fmm
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    M = spec.run.batch_size * (spec.model.seq_len - 1)
+    w = z = 0
+    for sel in layer_sels:
+        for on in sel:
+            for K, N in [(D, D)] * 4 + [(D, F), (F, D)]:
+                dw, dz = fmm.tile_counts(M, K, N, (1, 1), (bool(on),) * 2)
+                w, z = w + dw, z + dz
+        dw, dz = fmm.tile_counts(M, D, V, (1,), (True,))
+        w, z = w + 2 * dw, z + 2 * dz
+    return w, z
+
+
+def stats(xs):
+    """'median (min-max)' of a list of seconds."""
+    import statistics
+    return (f"median {statistics.median(xs):.4f} s (min {min(xs):.4f}, "
+            f"max {max(xs):.4f})")
+
+
+def device_idle_share(spec, cfg, params, steps):
+    """torch.profiler (CUDA kernel activity only) over ``steps`` steady
+    steps of the main path's step function after one warm step: device
+    busy seconds (sum of kernel times), host wall seconds around the
+    steps, and the idle share 1 - busy / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run = step_fn(spec, cfg, params)
+    run(1000)                                            # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(steps):
+            run(1001 + i)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if us is None else us) / 1e6
+    if busy == 0:
+        raise SystemExit("trace: the profile holds no device time")
+    return busy, wall, 1 - busy / wall
+
+
+def phase_trace(hold, cfg):
+    """Steady-state step time of the main path with telemetry off and on.
+
+    From the weights of ``train`` (kept on the host and put back before
+    every run, so every run starts from them and later phases get them
+    back): TRACE_WARM + TRACE_STEPS steps with telemetry off, then as
+    many with it on (``fence=false``; ring and ``trace.jsonl`` in a
+    temporary run directory), then off and on once more, each through
+    ``api.run``; the median, min and max of ``step_seconds`` over the
+    steady steps and of the ``train/step`` spans; launches equal on and
+    off and to ``costs.step_counts``; counters against the steps and
+    K3/K4's grid; the on/off ratio of the medians of both runs each way
+    within 0.80-1.25.  Between them, the device's idle share over
+    TRACE_STEPS steady steps (``torch.profiler``) and 4 steps with
+    ``fence=true`` (the median of each stage span).  Returns what the
+    ``replay`` phase needs: the last on-run, and the weights on the
+    host."""
+    import statistics
+    import tempfile
+    from repro_torch import api, estimators, obs
+    from repro_torch.core import zo
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.models import lm
+    from repro_torch.train.trainer import host_copy, load_host_
+
+    params = full_params(hold, cfg)
+    steps = TRACE_WARM + TRACE_STEPS
+    spec = api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, "run.steps": steps})
+    runs = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    out = {"runs": runs, "host": host_copy(params)}
+    on_spec = api.with_overrides(spec, {
+        "telemetry.enabled": True, "telemetry.runs_dir": runs})
+    secs = {"off": [], "on": []}
+    launches = {}
+
+    def run(tag, sp):
+        load_host_(params, out["host"])
+        hist, n, peak = run_counted(f"trace {tag}", sp, params)
+        check_launches(f"trace {tag}", sp, params, n)
+        launches[tag] = n
+        return hist, peak
+
+    for i, mode in enumerate(("off", "on", "off", "on")):
+        if i == 3:                       # between the pairs
+            load_host_(params, out["host"])
+            busy, wall, idle = device_idle_share(spec, cfg, params,
+                                                 TRACE_STEPS)
+            log(f"[trace] torch.profiler over {TRACE_STEPS} steady "
+                f"steps: wall {wall:.4f} s, device busy {busy:.4f} s, "
+                f"idle share {idle:.4f}")
+            fence_spec = api.with_overrides(on_spec, {
+                "run.steps": 4, "telemetry.fence": True})
+            hist_f, _ = run("fence", fence_spec)
+            fd = obs.load_run(hist_f["run_id"], runs)
+            spans = obs.spans_from_jsonl(
+                os.path.join(fd.dir, obs.runlog.TRACE_FILE))
+            for name in (obs.TRAIN_STEP, obs.FWD_PAIR, obs.UPDATE):
+                dts = [s.dt for s in spans if s.name == name]
+                log(f"[trace] fence=true, {name}: {len(dts)} spans, "
+                    f"{stats(dts)}")
+        hist, peak = run(f"{mode} {i // 2 + 1}",
+                         on_spec if mode == "on" else spec)
+        steady = hist["step_seconds"][TRACE_WARM:]
+        secs[mode] += steady
+        log(f"[trace] {TRACE_STEPS} steady steps, telemetry {mode} "
+            f"({i // 2 + 1}): step_seconds {stats(steady)}; peak memory "
+            f"{peak:.2f} GiB")
+    # the last run is the telemetry-on run replay re-executes
+    out["run_id"] = hist["run_id"]
+    rd = obs.load_run(hist["run_id"], runs)
+    trace = obs.read_jsonl(os.path.join(rd.dir, obs.runlog.TRACE_FILE))
+    span_s = [e["dt"] for e in trace if e.get("type") == "span"
+              and e["name"] == obs.TRAIN_STEP][TRACE_WARM:]
+    ratio = statistics.median(secs["on"]) / statistics.median(secs["off"])
+    log(f"[trace] telemetry on (fence=false), last run: train/step spans "
+        f"{stats(span_s)}; both runs each way: off {stats(secs['off'])}, "
+        f"on {stats(secs['on'])}; on/off median ratio {ratio:.4f}")
+    counters = [e for e in trace if e.get("type") == "counters"][-1]
+    c, g = counters["counters"], counters["gauges"]
+    est = estimators.build_estimator(zo.build_spec(params, lm.zo_group_fn),
+                                     api.derive(spec).est_cfg)
+    sels = [r["layer_sel"] for r in rd.steps]
+    w_want, z_want = expected_tiles(cfg, spec, sels)
+    want = {obs.CTR_PROBES: 2 * steps, obs.CTR_SELECTS: steps,
+            obs.CTR_AXPY: est.step_counts()["axpy_sweeps"] * steps,
+            obs.CTR_WLOAD: w_want, obs.CTR_ZREGEN: z_want}
+    per_w = (cfg.d_model // 64) * (cfg.d_ff // 64)
+    zt = fmm.tile_counts(1008, cfg.d_model, cfg.d_ff, (1, 1), (True,) * 2)
+    log(f"[trace] counters {c}; gauges {g}; K3 (D, d_ff) active pair: z "
+        f"tiles per W tile {zt[1] / per_w:g}")
+    if len({str(n) for n in launches.values() if n is not None}) > 2:
+        raise SystemExit(f"trace: launches differ between runs {launches}")
+    if launches["on 1"] != launches["off 1"]:
+        raise SystemExit(f"trace: launches with telemetry on "
+                         f"{launches['on 1']} != off {launches['off 1']}")
+    bad = {k: (c.get(k), v) for k, v in want.items() if c.get(k) != v}
+    if bad or g.get(obs.GAUGE_ACTIVE) != sum(sels[-1]):
+        raise SystemExit(f"trace: counters (got, want) {bad}; gauge {g}")
+    if not 0.80 <= ratio <= 1.25:
+        raise SystemExit(f"trace: on/off median step ratio {ratio:.4f} "
+                         "outside 0.80-1.25")
+    return out
+
+
+def phase_replay(held, params):
+    """``launch replay`` of the ``trace`` phase's last telemetry-on run on
+    the card: from the weights that run started from, every recorded
+    step re-executed through the trainer's step (the last included) and
+    every recorded scalar compared bit for bit, then every parameter
+    against the run's final ones (``params``).  Then the drain time of
+    one logged step with ``health_norms`` (the exact ‖z‖ at 13B) and the
+    report's stage-timing table."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch import api, obs
+    from repro_torch.launch import replay, report
+    from repro_torch.train.trainer import Trainer, load_host_
+
+    runs, rid = held["runs"], held["run_id"]
+    p0 = load_host_(copy.deepcopy(params), held["host"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = replay.replay_run(rid, runs_root=runs, device="cuda", params=p0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               if a.dtype == torch.bfloat16 else torch.equal(a, b)
+               for a, b in zip(p0.parameters(), params.parameters()))
+    log(f"[replay] run {rid}: steps {rep['param_start']}..{rep['step']} "
+        f"re-executed on {rep['device']} in {secs:.2f} s; ok {rep['ok']}; "
+        f"failures {rep['failures'][:3]}; every parameter bit-equal to "
+        f"the run's: {same}")
+    del p0, rep["final_params"]
+    if not rep["ok"] or rep["failures"] or not same:
+        raise SystemExit("replay: the run did not replay bit for bit")
+    rd = obs.load_run(rid, runs)
+    spec = api.with_overrides(api.from_dict(rd.spec), {
+        "telemetry.enabled": False, "telemetry.health_norms": True})
+    tr = Trainer.from_spec(spec, params=params)
+    row = rd.steps[-1]
+    tr.health.record(row["step"], {
+        "coeffs": np.asarray(row["coeffs"], np.float32),
+        "n_active_params": np.asarray(row["n_active_params"], np.float32),
+        "lr": np.float32(row["lr"]),
+        "layer_sel": np.asarray(row["layer_sel"], np.int32)},
+        seed=row["seed"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    drained = tr.health.drain()[0]
+    secs = time.perf_counter() - t
+    log(f"[replay] health_norms drain of one logged step: {secs:.3f} s; "
+        f"update_norm {drained['update_norm']:.6g} against the estimate "
+        f"{drained['update_norm_est']:.6g}")
+    if not math.isclose(drained["update_norm"], drained["update_norm_est"],
+                        rel_tol=1e-3):
+        raise SystemExit("replay: exact update norm off the E||z||^2 = N "
+                         "estimate by more than 1e-3")
+    md = report.report_run(rid, runs_root=runs)["markdown"]
+    table = md[md.index("## Stage timings"):].strip().splitlines()
+    for line in table:
+        log(f"[replay] report: {line}")
+
+
 SOURCES = {
     "zo_axpy_2d": ("src/repro_torch/csrc/zo_axpy.cu",
                    "src/repro/kernels/zo_axpy.py:82"),
@@ -1242,8 +1492,9 @@ SOURCES = {
 }
 
 
-PHASES = ("build", "rng", "parity", "train", "check", "profile",
-          "estimators", "momentum", "tasks", "peft", "fo", "resume")
+PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
+          "replay", "estimators", "momentum", "tasks", "peft", "fo",
+          "resume")
 
 
 def main() -> int:
@@ -1252,9 +1503,10 @@ def main() -> int:
                     help="comma list of phases to run (default: all)")
     phases = ap.parse_args().phases.split(",")
     if set(phases) - set(PHASES) or (
-            {"check", "profile"} & set(phases) and "train" not in phases):
+            {"check", "profile"} & set(phases) and "train" not in phases) \
+            or ("replay" in phases and "trace" not in phases):
         ap.error(f"--phases takes a subset of {','.join(PHASES)}; check "
-                 "and profile need train")
+                 "and profile need train, replay needs trace")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1284,6 +1536,18 @@ def main() -> int:
         phase_check(spec, cfg, hold["params"])
     if "profile" in phases:
         phase_profile(spec, cfg, hold["params"])
+    if "trace" in phases:
+        from repro_torch.train.trainer import load_host_
+        held = phase_trace(hold, cfg)
+        try:
+            if "replay" in phases:
+                phase_replay(held, hold["params"])
+        finally:                     # later phases get train's weights
+            load_host_(hold["params"], held["host"])
+            shutil.rmtree(held["runs"], ignore_errors=True)
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
     if "estimators" in phases:
         phase_estimators(hold, cfg)
     if "momentum" in phases:

@@ -77,6 +77,7 @@ def _summary(spec: Experiment, trainer, hist: Dict) -> Dict:
         "final_loss": hist["loss"][-1] if hist["loss"] else None,
         "val_loss": hist["val_loss"], "val_acc": hist["val_acc"],
         "best_step": hist.get("best_step"),
+        "run_id": hist.get("run_id"), "run_dir": hist.get("run_dir"),
     }
 
 

@@ -159,19 +159,19 @@ class Serving:
 
 @dataclasses.dataclass(frozen=True)
 class Telemetry:
-    """``repro.obs`` wiring (DESIGN.md §13): stage-level step tracing,
-    serving metrics, and the optional jax profiler hook.  Disabled by
+    """``repro_torch.obs`` wiring (DESIGN.md §13): stage-level step
+    tracing, metrics, and the optional torch.profiler hook.  Disabled by
     default — the hot paths then pay the zero-allocation null tracer.
     Every field is resume-mutable: turning telemetry on (or moving a
     sink) is not a training-recipe change."""
     enabled: bool = False
     ring: int = 4096              # in-memory span ring capacity (0 = off)
-    fence: bool = False           # block_until_ready at span exit (true
-                                  # stage timings; serializes dispatch)
+    fence: bool = False           # CUDA synchronise at span exit (true
+                                  # stage timings; serializes launches)
     jsonl: Optional[str] = None   # JSONL span/event log path
     prometheus: Optional[str] = None  # metrics text-dump path
-    profile_dir: Optional[str] = None  # jax.profiler trace dir
-    # --- optimizer-health run log (repro.obs.health / .runlog): write a
+    profile_dir: Optional[str] = None  # torch.profiler Chrome trace dir
+    # --- optimizer-health run log (obs.health / obs.runlog): write a
     # structured run directory <runs_dir>/<run_id>/ (spec + per-step
     # scalar JSONL + summary) that `launch report` renders and `launch
     # replay` re-executes bit-identically.  Independent of `enabled` —

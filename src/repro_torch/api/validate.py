@@ -5,9 +5,10 @@ the synthetic task or a registry task, single process, in every
 optimizer mode (``zo`` with any estimator, ``zo_momentum``, ``fo``),
 over the full model or a PEFT tree (LoRA, prefix), any axpy backend, any
 forward backend, the loss-shard quorum and checkpoint/resume, under the
-reference's rules.  Meshes, the swarm and telemetry raise
-:class:`SpecError` naming the field and saying "not yet ported", before
-any parameter is allocated.
+reference's rules, with telemetry (tracing, run directories, optimizer
+health) under the reference's telemetry rules.  Meshes and the swarm
+raise :class:`SpecError` naming the field and saying "not yet ported",
+before any parameter is allocated.
 """
 from repro_torch import configs
 from repro_torch import tasks as tasks_mod
@@ -129,8 +130,31 @@ def validate(spec: Experiment):
 
     _ported(sw.workers == 0 and sw.n_shards == 0, "swarm.workers",
             "the multi-process swarm")
-    _ported(not tel.enabled and tel.runs_dir is None, "telemetry.enabled",
-            "telemetry (tracing and run logs)")
+    # telemetry node, under the reference's rules: a sink only makes
+    # sense on an enabled tracer, an enabled tracer needs a sink, and the
+    # health knobs need a run directory to write to
+    _require(tel.ring >= 0, "telemetry.ring",
+             f"must be >= 0 (0 = no ring buffer), got {tel.ring}")
+    if not tel.enabled:
+        for path, val in (("telemetry.fence", tel.fence),
+                          ("telemetry.jsonl", tel.jsonl),
+                          ("telemetry.prometheus", tel.prometheus),
+                          ("telemetry.profile_dir", tel.profile_dir)):
+            _require(not val, path,
+                     "configured while telemetry.enabled=false — the "
+                     "sink would silently record nothing; set "
+                     "telemetry.enabled=true (or clear this field)")
+    if tel.enabled:
+        _require(tel.ring > 0 or bool(tel.jsonl), "telemetry.ring",
+                 "telemetry.enabled=true needs at least one span sink: "
+                 "a ring capacity > 0 or a telemetry.jsonl path")
+    if tel.runs_dir is None:
+        for path, val in (("telemetry.run_id", tel.run_id),
+                          ("telemetry.health_norms", tel.health_norms)):
+            _require(not val, path,
+                     "configured while telemetry.runs_dir is unset — no "
+                     "run directory would be written; set "
+                     "telemetry.runs_dir (or clear this field)")
 
     _require(r.steps >= 1, "run.steps", f"must be >= 1, got {r.steps}")
     _require(r.batch_size >= 1, "run.batch_size",

@@ -17,7 +17,9 @@ manifest, which is how they are read back bit for bit.
   checkpoint is ever on disk under a ``step_`` name;
 * async: ``save(..., blocking=False)`` copies the parameters to the host
   at once (the train loop updates them in place afterwards), then writes
-  on a daemon thread;
+  on a daemon thread; an error of that write is raised by the next
+  ``wait()`` (``save`` and the trainer's end of run call it), so a
+  checkpoint is never lost silently;
 * keep-k GC and newest-first ``latest()``.
 """
 from __future__ import annotations
@@ -64,6 +66,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     # ------------------------------------------------------------- save
     def save(self, step: int, params, base_seed: int,
@@ -93,16 +96,28 @@ class CheckpointManager:
             os.rename(tmp, final)
             self._gc()
 
+        def _write_async():
+            try:
+                _write()
+            except Exception as e:  # re-raised by wait()
+                self._error = e
+
         if blocking:
             _write()
         else:
-            self._thread = threading.Thread(target=_write, daemon=True)
+            self._thread = threading.Thread(target=_write_async, daemon=True)
             self._thread.start()
 
     def wait(self):
+        """Join the pending asynchronous write; raise its error, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError(
+                f"asynchronous checkpoint write to {self.dir} failed") \
+                from err
 
     def _gc(self):
         for s in self.all_steps()[:-self.keep]:

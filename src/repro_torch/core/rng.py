@@ -15,6 +15,9 @@ every shift.  An int64 product of two 32-bit words may wrap; the low 32
 bits survive the wrap, which is all the mask keeps.  The same code runs
 on CUDA tensors; the kernels carry their own native-uint32 copy in
 ``csrc/rng.cuh``.
+
+Every ``fold`` and ``fold_py`` counts one ``rng_folds`` on the current
+tracer (``obs.trace``; free when it is the disabled one).
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.obs import trace as obs
 
 MASK32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -53,13 +58,15 @@ def mix32(x) -> torch.Tensor:
 
 def fold(seed, data) -> torch.Tensor:
     """Derive a new uint32 seed from (seed, data) — order matters."""
+    obs.get_tracer().count(obs.CTR_RNG_FOLDS)
     seed = _u32(seed)
     data = _u32(data, seed.device)
     return mix32((seed * GOLDEN + data + M2) & MASK32)
 
 
 def fold_py(seed: int, data: int) -> int:
-    """Python-int version of :func:`fold`."""
+    """Python-int version of :func:`fold` (counted as one fold)."""
+    obs.get_tracer().count(obs.CTR_RNG_FOLDS)
     x = (seed * GOLDEN + data + M2) & MASK32
     x ^= x >> 16
     x = (x * M1) & MASK32

@@ -11,7 +11,8 @@ by them are the reference's.
 Selection runs on the host: masks are (L_g,) CPU bool tensors and
 active index vectors CPU int64 tensors, pure functions of the step seed.
 The health scalars (``active_param_count``) are numpy float32 values
-computed in the reference's op order.
+computed in the reference's op order; ``tree_z_norm`` is the exact
+‖z(seed)‖ of one direction, drawn a row chunk at a time.
 """
 from __future__ import annotations
 
@@ -24,6 +25,11 @@ import torch
 
 from repro_torch.core import rng, selection
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as obs
+
+# elements of z drawn at once by tree_z_norm: the plain RNG's int64
+# temporaries of one chunk stay near 1 GB on the card
+Z_NORM_CHUNK = 1 << 24
 
 
 def leaf_items(params):
@@ -191,11 +197,41 @@ def active_param_count(spec: ZOSpec, shapes, masks) -> np.float32:
     return total
 
 
+@torch.no_grad()
+def tree_z_norm(spec: ZOSpec, shapes, seed: int, masks,
+                device=None) -> float:
+    """Exact ‖z(seed)‖ over the active subset — the RNG-stream norm
+    identity: z is a pure function of (seed, leaf, layer, element), so
+    the magnitude of the update ``-lr·g·z`` a recorded step applied is
+    ``|lr·g| * tree_z_norm(...)`` without z ever existing beside the
+    parameters.  Each leaf's stream is drawn as ``kernels/ops.zo_axpy_``
+    draws it (``fold(seed, leaf_uid(path))``, one pseudo-layer for
+    ungrouped leaves), one active row at a time in chunks of
+    ``Z_NORM_CHUNK`` elements on ``device``; squares are summed in
+    float64."""
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    for shape, path, group in zip(shapes, spec.paths, spec.groups):
+        leaf_seed = rng.fold_py(seed, rng.leaf_uid(path))
+        if group is None:
+            rows, n = [0], math.prod(shape)
+        else:
+            rows = torch.nonzero(masks[group].cpu()).flatten().tolist()
+            n = math.prod(shape[1:])
+        for r in rows:
+            lseed = rng.fold_py(leaf_seed, r)
+            for c0 in range(0, n, Z_NORM_CHUNK):
+                z = rng.counter_normal(lseed, torch.arange(
+                    c0, min(n, c0 + Z_NORM_CHUNK), device=device))
+                total += z.square().sum(dtype=torch.float64)
+    return math.sqrt(total.item())
+
+
 # ----------------------------------------------------------------- axpy
 @torch.no_grad()
 def tree_axpy_(params, spec: ZOSpec, seed: int, scale, masks, idxs=None, *,
                decay=1.0, backend="dense"):
     """theta <- decay*theta + scale*z on active layers, in place."""
+    obs.get_tracer().count(obs.CTR_AXPY)
     leaves = leaf_items(params)
     if tuple(p for p, _ in leaves) != spec.paths:
         raise ValueError("params changed since build_spec")

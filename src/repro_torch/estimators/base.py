@@ -28,6 +28,7 @@ import numpy as np
 
 from repro_torch.core import rng, zo
 from repro_torch.estimators import costs
+from repro_torch.obs import trace as obs
 
 _DIR_SALT = 0xD16E  # folds the direction index into the step seed
 
@@ -102,10 +103,16 @@ class Estimator:
         """-> (masks {g: (L_g,) bool}, idxs {g: (k_g,) int64} | None,
         n_active)."""
         if self._select is not None:
-            return self._select(seed, state)
-        if self.cfg.policy == "stratified":
-            return zo.stratified_select(self.spec, seed, self.cfg.n_drop)
-        return zo.uniform_select(self.spec, seed, self.cfg.n_drop)
+            sel = self._select(seed, state)
+        elif self.cfg.policy == "stratified":
+            sel = zo.stratified_select(self.spec, seed, self.cfg.n_drop)
+        else:
+            sel = zo.uniform_select(self.spec, seed, self.cfg.n_drop)
+        tr = obs.get_tracer()
+        if tr.enabled and not obs.tracing():
+            tr.count(obs.CTR_SELECTS)
+            tr.gauge(obs.GAUGE_ACTIVE, int(sel[2]))
+        return sel
 
     def init_state(self) -> Dict:
         return {}
@@ -158,15 +165,18 @@ class Estimator:
         """theta <- decay*theta - lr * sum_i coeffs[i] * z_i, as q axpy
         passes (restore folded into the single pass when q == 1)."""
         lr32 = np.float32(lr)
-        if self.cfg.fused_update and len(dirs) == 1 and dirs.restore[0] != 0.0:
-            scale = np.float32(dirs.restore[0]) - lr32 * dirs.coeffs[0]
-            return self._ax(params, scale, dirs.seeds[0], dirs.masks[0],
-                            dirs.idxs[0], decay)
-        params = self.restore_probe(params, dirs)
-        for i in range(len(dirs)):
-            self._ax(params, -lr32 * dirs.coeffs[i], dirs.seeds[i],
-                     dirs.masks[i], dirs.idxs[i], decay if i == 0 else 1.0)
-        return params
+        with obs.get_tracer().span(obs.UPDATE) as sp:
+            if (self.cfg.fused_update and len(dirs) == 1
+                    and dirs.restore[0] != 0.0):
+                scale = np.float32(dirs.restore[0]) - lr32 * dirs.coeffs[0]
+                return sp.fence(self._ax(params, scale, dirs.seeds[0],
+                                         dirs.masks[0], dirs.idxs[0], decay))
+            params = self.restore_probe(params, dirs)
+            for i in range(len(dirs)):
+                self._ax(params, -lr32 * dirs.coeffs[i], dirs.seeds[i],
+                         dirs.masks[i], dirs.idxs[i],
+                         decay if i == 0 else 1.0)
+            return sp.fence(params)
 
     def step_counts(self) -> Dict:
         """Analytic per-step cost counts (``estimators/costs.py``)."""

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import zo
 from repro_torch.estimators.base import (DirectionSet, Estimator,
                                          direction_seeds, host_f32)
+from repro_torch.obs import trace as obs
 
 
 class OneSidedBatched(Estimator):
@@ -48,22 +49,29 @@ class OneSidedBatched(Estimator):
         idxs = tuple(s[1] for s in sels)
         n_active = sels[0][2]
 
-        l0 = host_f32(loss_fn(params, batch))
+        tr = obs.get_tracer()
+        with tr.span(obs.FWD_BASE) as sp:
+            l0 = sp.fence(loss_fn(params, batch))
+        l0 = host_f32(l0)
         chunk = cfg.q_chunk if 0 < cfg.q_chunk < q else q
-        losses = []
-        for c0 in range(0, q, chunk):
-            part = range(c0, min(c0 + chunk, q))
-            if self.virtual and cfg.paired_probes:
-                sub = {g: torch.stack([masks[i][g] for i in part])
-                       for g in masks[0]}
-                ls = self._vloss_stack(loss_fn, params, batch,
-                                       [seeds[i] for i in part], cfg.eps,
-                                       sub)
-                losses += [np.float32(v) for v in ls.tolist()]
-            else:
-                losses += [host_f32(self._probe(loss_fn, params, batch,
-                                                seeds[i], masks[i]))
-                           for i in part]
+        parts = []
+        # one span over all q probes, as in the reference
+        with tr.span(obs.FWD_PLUS) as sp:
+            for c0 in range(0, q, chunk):
+                part = range(c0, min(c0 + chunk, q))
+                if self.virtual and cfg.paired_probes:
+                    sub = {g: torch.stack([masks[i][g] for i in part])
+                           for g in masks[0]}
+                    parts.append(self._vloss_stack(
+                        loss_fn, params, batch, [seeds[i] for i in part],
+                        cfg.eps, sub))
+                else:
+                    parts += [self._probe(loss_fn, params, batch, seeds[i],
+                                          masks[i]).reshape(1)
+                              for i in part]
+            sp.fence(parts)
+        losses = [np.float32(v) for v in torch.cat(parts).tolist()]
+        tr.count(obs.CTR_PROBES, q)
         g = (np.array(losses, np.float32) - l0) / np.float32(cfg.eps)
         coeffs = tuple(g[i] / np.float32(q) for i in range(q))
         dirs = DirectionSet(seeds=seeds, coeffs=coeffs, restore=(0.0,) * q,

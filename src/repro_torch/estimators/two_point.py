@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.estimators.base import DirectionSet, Estimator, host_f32
+from repro_torch.obs import trace as obs
 
 
 class TwoPointSPSA(Estimator):
@@ -16,24 +17,36 @@ class TwoPointSPSA(Estimator):
 
     def estimate(self, loss_fn, params, batch, seed, state=None):
         cfg = self.cfg
+        tr = obs.get_tracer()
         masks, idxs, n_active = self.select(seed, state)
         if self.virtual and cfg.paired_probes:
-            losses = self._vloss_pair(loss_fn, params, batch, seed, cfg.eps,
-                                      masks)
+            with tr.span(obs.FWD_PAIR) as sp:
+                losses = sp.fence(self._vloss_pair(loss_fn, params, batch,
+                                                   seed, cfg.eps, masks))
             l_plus, l_minus = host_f32(losses[0]), host_f32(losses[1])
             restore = 0.0
         elif self.virtual:
-            l_plus = host_f32(self._vloss(loss_fn, params, batch, seed,
+            with tr.span(obs.FWD_PLUS) as sp:
+                lp = sp.fence(self._vloss(loss_fn, params, batch, seed,
                                           cfg.eps, masks))
-            l_minus = host_f32(self._vloss(loss_fn, params, batch, seed,
-                                           -cfg.eps, masks))
+            with tr.span(obs.FWD_MINUS) as sp:
+                lm = sp.fence(self._vloss(loss_fn, params, batch, seed,
+                                          -cfg.eps, masks))
+            l_plus, l_minus = host_f32(lp), host_f32(lm)
             restore = 0.0
         else:
-            self._ax(params, cfg.eps, seed, masks, idxs)
-            l_plus = host_f32(loss_fn(params, batch))
-            self._ax(params, -2.0 * cfg.eps, seed, masks, idxs)
-            l_minus = host_f32(loss_fn(params, batch))
+            with tr.span(obs.PERTURB) as sp:
+                sp.fence(self._ax(params, cfg.eps, seed, masks, idxs))
+            with tr.span(obs.FWD_PLUS) as sp:
+                lp = sp.fence(loss_fn(params, batch))
+            l_plus = host_f32(lp)
+            with tr.span(obs.PERTURB) as sp:
+                sp.fence(self._ax(params, -2.0 * cfg.eps, seed, masks, idxs))
+            with tr.span(obs.FWD_MINUS) as sp:
+                lm = sp.fence(loss_fn(params, batch))
+            l_minus = host_f32(lm)
             restore = cfg.eps
+        tr.count(obs.CTR_PROBES, 2)
         g = (l_plus - l_minus) / np.float32(2.0 * cfg.eps)
         dirs = DirectionSet(seeds=(seed,), coeffs=(g,), restore=(restore,),
                             masks=(masks,), idxs=(idxs,))

@@ -68,6 +68,40 @@ def probe_groups(active):
     return [ps[i:i + 2] for ps in (on, off) for i in range(0, len(ps), 2)]
 
 
+# csrc/pmatmul.cu's tilings by activity: (rows of x a block holds, split
+# evenly over the P probes; W columns a block holds), and its k-tile
+TILINGS = {False: (256, 128), True: (512, 64)}
+BK = 64
+
+
+def launch_tiles(P: int, M: int, K: int, N: int, active: bool,
+                 shared_seed: bool):
+    """(W tiles loaded, z tiles drawn) by one launch of P probes of M
+    rows each: every block walks the K/BK tiles of its W columns, and an
+    active launch draws each tile's z once (one seed for all probes) or
+    once a probe."""
+    rows, bn = TILINGS[active]
+    bmp = rows // P
+    w = -(-M // bmp) * -(-N // bn) * -(-K // BK)
+    return w, (w * (1 if shared_seed else P) if active else 0)
+
+
+def tile_counts(M: int, K: int, N: int, seeds, active):
+    """(W tiles loaded, z tiles drawn) summed over the launches that
+    ``pmatmul`` (one probe) or ``pmatmul_stack`` makes for probes of M
+    rows with ``seeds`` and LeZO flags ``active``: the counters
+    ``w_tile_loads`` and ``z_regens`` (``obs.trace``)."""
+    seeds, active = tuple(seeds), tuple(bool(a) for a in active)
+    P = len(seeds)
+    groups = [list(range(P))] if P <= 2 else probe_groups(active)
+    w = z = 0
+    for g in groups:
+        dw, dz = launch_tiles(len(g), M, K, N, any(active[p] for p in g),
+                              len({seeds[p] for p in g}) == 1)
+        w, z = w + dw, z + dz
+    return w, z
+
+
 def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off,
             out=None):
     P, K = x.shape[0], x.shape[-1]

@@ -21,6 +21,10 @@ forward whose activations fold the probe axis into the batch, p-major
 ((P·B, S, D)): the ±εz pair, or P independent probes of one_sided.
 Every weight matmul then runs as one stacked K3 call (one launch for
 P <= 2, reading each W tile once for both probes; groups of two beyond).
+
+With a tracer enabled, each matmul counts the W tiles and z tiles of
+the launches the kernels make for it (``matmul.tile_counts``), whichever
+``impl`` computes it.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.fused import matmul as pk
 from repro_torch.fused import ref as fref
+from repro_torch.obs import trace as obs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +118,14 @@ class LayerPerturb:
         the probe axis rides x's leading batch dim."""
         seed = self._seed(name)
         ref = self.ctx.impl == "ref"
+        tr = obs.get_tracer()
+        if tr.enabled and not obs.tracing():
+            M = x.numel() // x.shape[-1] // max(1, self.nprobes)
+            act = (self.active,) if self.ctx.pair is None else self.active
+            seeds = (seed,) if self.ctx.pair is None else seed
+            wl, zt = pk.tile_counts(M, w.shape[0], w.shape[1], seeds, act)
+            tr.count(obs.CTR_WLOAD, wl)
+            tr.count(obs.CTR_ZREGEN, zt)
         if self.ctx.pair is None:
             fn = fref.pmatmul if ref else pk.pmatmul
             return fn(x, w, seed, self.ctx.scale, self.active, trans=trans,

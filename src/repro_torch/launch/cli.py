@@ -4,6 +4,8 @@
     python -m repro_torch.launch train    --preset lezo-opt13b --set optimizer.lr=1e-4
     python -m repro_torch.launch evaluate --task sst2 --mode train
     python -m repro_torch.launch specs    --out artifacts/specs
+    python -m repro_torch.launch report   [RUN] [--runs-root DIR]
+    python -m repro_torch.launch replay   [RUN] [--step K] [--device cpu]
 
 Every shared flag is *generated* from the spec schema —
 ``--<section>.<field>`` for each field, plus the reference's short
@@ -12,13 +14,17 @@ spec overrides.  Precedence: preset < generated/alias flags < command
 implications (``train --optimizer mezo`` always means n_drop=0) <
 ``--set section.field=value``.
 
-One flag the reference lacks: ``--device`` (default ``cuda``); the CPU
-runs only when asked with ``--device cpu``, and without a card the
-default fails rather than falling back.  ``train`` writes no run
-directory (the reference's ``--no-runlog`` behaviour, accepted as a
-flag) until telemetry is ported; ``specs`` has no ``--markdown``.  The
-module entry points ``repro_torch.launch.train`` and ``.evaluate`` are
-thin shims that forward here.
+``train`` writes a run directory under ``artifacts/runs/`` by default,
+as the reference does; ``--runs-dir`` moves it and ``--no-runlog`` turns
+it off.  ``report`` renders a run directory as markdown; ``replay``
+re-executes it and exits 1 when any recorded scalar differs.
+
+One flag the reference lacks: ``--device`` (default ``cuda``) on
+``train``, ``evaluate`` and ``replay``; the CPU runs only when asked
+with ``--device cpu``, and without a card the default fails rather than
+falling back.  ``specs`` has no ``--markdown``.  The module entry points
+``repro_torch.launch.train`` and ``.evaluate`` are thin shims that
+forward here.
 """
 from __future__ import annotations
 
@@ -60,6 +66,9 @@ ALIASES = {
     "--runs-dir": "telemetry.runs_dir",
 }
 
+# commands that read a run directory, not a spec
+_NO_SPEC_CMDS = {"report", "replay"}
+
 _SPEC_DEST = "spec_overrides"
 
 
@@ -92,6 +101,10 @@ def add_spec_flags(ap: argparse.ArgumentParser):
     ap.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
                     help="spec override, e.g. --set optimizer.lr=1e-4 "
                          "(highest precedence, repeatable)")
+    _add_device(ap)
+
+
+def _add_device(ap: argparse.ArgumentParser):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the kernels' plain versions)")
@@ -130,11 +143,21 @@ def _write_json(path: str, payload):
 
 # ---------------------------------------------------------------- commands
 def _cmd_train(ns):
+    from repro_torch.obs import runlog
+
     implied = {}
     if ns.optimizer == "mezo":
         implied = {"optimizer.sparsity": 0.0, "optimizer.n_drop": None}
     elif ns.optimizer == "fo":
         implied = {"optimizer.mode": "fo"}
+    # every launch train writes a run directory by default; an explicit
+    # flag wins (implications beat generated flags, so check first) and
+    # --no-runlog turns the registry off entirely
+    flags = getattr(ns, _SPEC_DEST, None) or {}
+    user_set = {kv.partition("=")[0] for kv in ns.set}
+    if (not ns.no_runlog and "telemetry.runs_dir" not in flags
+            and "telemetry.runs_dir" not in user_set):
+        implied["telemetry.runs_dir"] = runlog.DEFAULT_RUNS_DIR
     spec = build_spec(ns, implied)
     result = api.run(spec, device=ns.device)
     print(json.dumps(result["summary"], indent=1))
@@ -160,6 +183,24 @@ def _cmd_evaluate(ns):
     return reports
 
 
+def _cmd_report(ns):
+    from repro_torch.launch import report as report_mod
+
+    rep = report_mod.report_run(ns.run, runs_root=ns.runs_root, out=ns.out)
+    print(rep["markdown"])
+    return rep
+
+
+def _cmd_replay(ns):
+    from repro_torch.launch import replay as replay_mod
+
+    rep = replay_mod.replay_run(ns.run, step=ns.step,
+                                runs_root=ns.runs_root, device=ns.device)
+    rep.pop("final_params")
+    print(json.dumps(rep, indent=1))
+    return rep
+
+
 def _cmd_specs(ns):
     os.makedirs(ns.out, exist_ok=True)
     written = {}
@@ -181,8 +222,8 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
                         help="lezo (spec sparsity) | mezo (sparsity=0) | fo")
         ap.add_argument("--out", default=None, help="write history JSON here")
         ap.add_argument("--no-runlog", action="store_true",
-                        help="write no run directory (the port writes none "
-                             "until telemetry is ported)")
+                        help="write no run directory (default: one under "
+                             "artifacts/runs/)")
     elif cmd == "evaluate":
         ap.add_argument("--mode", default="zeroshot",
                         choices=["zeroshot", "train"])
@@ -191,10 +232,26 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
     elif cmd == "specs":
         ap.add_argument("--out", default="artifacts/specs",
                         help="dump every preset spec JSON here")
+    elif cmd in _NO_SPEC_CMDS:
+        ap.add_argument("run", nargs="?", default=None,
+                        help="run id or run-dir path (default: the "
+                             "latest run under --runs-root)")
+        ap.add_argument("--runs-root", default="artifacts/runs",
+                        help="run registry root (launch train default)")
+        if cmd == "replay":
+            ap.add_argument("--step", type=int, default=None,
+                            help="step to verify through (default: last "
+                                 "recorded)")
+            _add_device(ap)
+        else:
+            ap.add_argument("--out", default=None,
+                            help="also write the markdown here (default: "
+                                 "<run_dir>/report.md only)")
 
 
 COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate,
-            "specs": _cmd_specs}
+            "specs": _cmd_specs, "report": _cmd_report,
+            "replay": _cmd_replay}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -203,7 +260,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     for cmd in COMMANDS:
         p = sub.add_parser(cmd)
-        add_spec_flags(p)
+        if cmd not in _NO_SPEC_CMDS:
+            add_spec_flags(p)
         _add_extras(cmd, p)
     return ap
 
@@ -215,7 +273,9 @@ def main(argv=None):
 
 
 def console(argv=None) -> int:
-    main(argv)
+    result = main(argv)
+    if isinstance(result, dict) and result.get("failures"):
+        return 1
     return 0
 
 

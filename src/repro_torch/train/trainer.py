@@ -28,10 +28,23 @@ The best parameters are kept as a host copy (``host_copy``), as the
 reference keeps numpy arrays: at OPT-13B that is 25.7 GB of host memory
 and one device-to-host copy for each improvement.
 
+Telemetry (the spec's ``telemetry`` node, as in the reference): with
+``telemetry.enabled`` the trainer's tracer is installed for the length
+of ``train()``, so the eager step records the reference's stage spans
+(``forward_pair``, ``update_axpy``, ...) under a ``train/step`` span per
+step, and its counters; with ``telemetry.runs_dir`` every ``train()``
+writes ``<runs_dir>/<run_id>/`` (spec, the per-step health rows drained
+on the log boundary, a summary, and the stage trace when the tracer is
+on), which ``launch report`` renders and ``launch replay`` re-executes
+bit for bit.  Neither adds a device synchronisation: the step already
+brings its scalars to the host and ``train()`` synchronises after each
+step for ``step_seconds``.
+
 The trainer runs on the card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Optional
@@ -39,7 +52,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import estimators, resolve_device
+from repro_torch import estimators
+from repro_torch import obs as obs_mod
+from repro_torch import resolve_device
 from repro_torch import tasks as tasks_mod
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import fo, rng, zo, zo_adaptive
@@ -140,6 +155,19 @@ class Trainer:
                 raise ValueError("forward_backend='virtual' requires "
                                  "mode='zo'")
         self.experiment, self.derived = _spec, _derived
+        # run directory and telemetry session, as the reference wires them
+        tel = getattr(_spec, "telemetry", None)
+        self.runlog = self.health = self.run_id = None
+        if tel is not None and tel.runs_dir:
+            from repro_torch import api
+            self.run_id = tel.run_id or obs_mod.make_run_id(
+                tel.runs_dir, seed=tcfg.seed)
+            self.runlog = obs_mod.RunLog(tel.runs_dir, self.run_id,
+                                         spec=api.to_dict(_spec))
+            if tel.enabled and not tel.jsonl:
+                # no explicit span sink: the stage trace joins the run dir
+                tel = dataclasses.replace(tel, jsonl=self.runlog.trace_path)
+        self.obs = obs_mod.session(tel)
         self.mcfg, self.task, self.tcfg = model_cfg, task, tcfg
         self.est_cfg, self.fo_cfg = est_cfg, fo_cfg
         self.registry_task = (task if isinstance(task, tasks_mod.CompiledTask)
@@ -174,8 +202,27 @@ class Trainer:
         self.loss_fn = self._make_loss(grad=tcfg.mode == "fo")
         self._eval_loss = self._make_loss(grad=False)
         self._build_step()
+        if self.runlog is not None:
+            norm_fn = None
+            if (_spec.telemetry.health_norms and tcfg.mode == "zo"
+                    and self.spec.num_layers):
+                norm_fn = self._make_norm_fn()
+            self.health = obs_mod.HealthAccumulator(self.spec.num_layers,
+                                                    norm_fn=norm_fn)
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
                      if tcfg.ckpt_dir else None)
+
+    def _make_norm_fn(self):
+        """Exact ‖z(seed)‖ on a recorded layer selection, evaluated at
+        drain time (off the hot path) on the trainer's device."""
+        spec, shapes = self.spec, zo.leaf_shapes(self.params)
+
+        def norm_fn(seed, layer_sel):
+            gmask = torch.as_tensor(np.asarray(layer_sel) > 0)
+            return zo.tree_z_norm(spec, shapes, seed,
+                                  spec.split_mask(gmask), self.device)
+
+        return norm_fn
 
     def _make_loss(self, grad: bool):
         """The model's loss, over the arrived shards when the quorum is
@@ -234,7 +281,10 @@ class Trainer:
         if self.experiment is None:
             return None
         from repro_torch import api
-        return {"spec": api.to_dict(self.experiment)}
+        extra = {"spec": api.to_dict(self.experiment)}
+        if self.run_id is not None:
+            extra["run_id"] = self.run_id
+        return extra
 
     def _resume(self, params) -> int:
         """Restore the latest checkpoint into ``params``; its step."""
@@ -273,45 +323,69 @@ class Trainer:
                        if k in tasks_mod.MODEL_BATCH_KEYS}
         stream = synthetic.batches(stream_data, tcfg.batch_size, tcfg.steps,
                                    seed=tcfg.seed + 7)
-        for t, np_batch in enumerate(stream):
-            if t < start:
-                continue
-            batch = self._model_batch(np_batch)
-            ts = time.perf_counter()
-            params, self.state, metrics = self._step(params, self.state,
-                                                     batch, t, base_seed)
-            self._sync()
-            step_s = time.perf_counter() - ts
-            if tcfg.log_every and (t % tcfg.log_every == 0
-                                   or t == tcfg.steps - 1):
-                history["step"].append(t)
-                history["loss"].append(float(metrics["loss"]))
-                pg, al = (metrics.get("projected_grad"),
-                          metrics.get("active_layers"))
-                history["projected_grad"].append(
-                    None if pg is None else float(pg))
-                history["active_layers"].append(
-                    None if al is None else int(al))
-                history["step_seconds"].append(step_s)
-                history["wall"].append(time.perf_counter() - t0)
-            if tcfg.eval_every and (t + 1) % tcfg.eval_every == 0:
-                vl, va = self.evaluate(params, val_data)
-                history["val_step"].append(t + 1)
-                history["val_loss"].append(vl)
-                history["val_acc"].append(va)
-                score = va if self.registry_task is not None else -vl
-                if score > best[0]:
-                    best = (score, host_copy(params), t + 1)
-            if (self.ckpt and tcfg.ckpt_every
-                    and (t + 1) % tcfg.ckpt_every == 0):
-                self.ckpt.save(t + 1, params, base_seed,
-                               extra=self._ckpt_extra(), blocking=False)
+        tr = self.obs.tracer
+        # an enabled session's tracer is the current one while training;
+        # a disabled one leaves whatever tracer the caller installed
+        scope = (obs_mod.use(tr) if self.obs.enabled
+                 else contextlib.nullcontext())
+        with scope, self.obs.profile():
+            for t, np_batch in enumerate(stream):
+                if t < start:
+                    continue
+                batch = self._model_batch(np_batch)
+                ts = time.perf_counter()
+                with tr.span(obs_mod.TRAIN_STEP) as sp:
+                    params, self.state, metrics = self._step(
+                        params, self.state, batch, t, base_seed)
+                    sp.fence(params)
+                self._sync()
+                step_s = time.perf_counter() - ts
+                if tr.enabled and "active_layers" in metrics:
+                    tr.gauge(obs_mod.GAUGE_ACTIVE,
+                             int(metrics["active_layers"]))
+                if self.health is not None:
+                    seed = metrics.get("seed")
+                    self.health.record(t, metrics, seed=(
+                        rng.fold_py(base_seed, t) if seed is None
+                        else seed))
+                if tcfg.log_every and (t % tcfg.log_every == 0
+                                       or t == tcfg.steps - 1):
+                    history["step"].append(t)
+                    history["loss"].append(float(metrics["loss"]))
+                    pg, al = (metrics.get("projected_grad"),
+                              metrics.get("active_layers"))
+                    history["projected_grad"].append(
+                        None if pg is None else float(pg))
+                    history["active_layers"].append(
+                        None if al is None else int(al))
+                    history["step_seconds"].append(step_s)
+                    history["wall"].append(time.perf_counter() - t0)
+                    if self.runlog is not None:
+                        self.runlog.append(self.health.drain())
+                if tcfg.eval_every and (t + 1) % tcfg.eval_every == 0:
+                    vl, va = self.evaluate(params, val_data)
+                    history["val_step"].append(t + 1)
+                    history["val_loss"].append(vl)
+                    history["val_acc"].append(va)
+                    score = va if self.registry_task is not None else -vl
+                    if score > best[0]:
+                        best = (score, host_copy(params), t + 1)
+                if (self.ckpt and tcfg.ckpt_every
+                        and (t + 1) % tcfg.ckpt_every == 0):
+                    self.ckpt.save(t + 1, params, base_seed,
+                                   extra=self._ckpt_extra(), blocking=False)
         if self.ckpt:
             self.ckpt.wait()
         history["final_params"] = params
         if best[1] is not None:
             history["best_params"] = best[1]
             history["best_step"] = best[2]
+        if self.runlog is not None:
+            self.runlog.append(self.health.drain())
+            self.runlog.finalize(self.health.summary())
+            history["run_id"] = self.run_id
+            history["run_dir"] = self.runlog.dir
+        self.obs.flush()
         return history
 
     def evaluate(self, params, val_data, max_examples=256):

@@ -31,8 +31,6 @@ def test_preset_json_identical(name):
 
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
-    ({"telemetry.enabled": True}, "telemetry.enabled"),
-    ({"telemetry.runs_dir": "runs"}, "telemetry.enabled"),
     ({"swarm.workers": 2}, "swarm.workers"),
     ({"swarm.n_shards": 2}, "swarm.workers"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
@@ -58,6 +56,21 @@ def test_ported_fields_validate_like_the_reference(override):
     assert d.tcfg.peft == jd.tcfg.peft
     assert type(d.task).__name__ == type(jd.task).__name__
     assert getattr(d.task, "name", None) == getattr(jd.task, "name", None)
+
+
+@pytest.mark.parametrize("override", [
+    {"telemetry.enabled": True}, {"telemetry.runs_dir": "runs"},
+    {"telemetry.runs_dir": "runs", "telemetry.run_id": "r1",
+     "telemetry.health_norms": True},
+    {"telemetry.enabled": True, "telemetry.ring": 0,
+     "telemetry.jsonl": "t.jsonl", "telemetry.fence": True,
+     "telemetry.prometheus": "m.prom", "telemetry.profile_dir": "p"}])
+def test_telemetry_fields_validate_like_the_reference(override):
+    """The telemetry fields (ported in the observability slice) validate
+    as in the reference: accepted here, accepted there, and the spec
+    reaches the trainer's session."""
+    tapi.validate(tapi.with_overrides(tapi.preset("lezo-opt13b"), override))
+    japi.validate(japi.with_overrides(japi.preset("lezo-opt13b"), override))
 
 
 def test_main_path_spec_validates():
@@ -92,6 +105,13 @@ def test_port_imports_neither_jax_nor_reference():
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert len(files) > 20 and not bad, bad
+    scanned = {os.path.relpath(f, os.path.join(ROOT, "src", "repro_torch"))
+               for f in files}
+    for mod in ("obs/__init__.py", "obs/trace.py", "obs/sinks.py",
+                "obs/metrics.py", "obs/profiler.py", "obs/runtime.py",
+                "obs/health.py", "obs/runlog.py", "launch/report.py",
+                "launch/replay.py", "launch/cli.py"):
+        assert mod in scanned, mod
 
 
 @pytest.mark.parametrize("overrides", [

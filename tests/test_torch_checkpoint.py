@@ -192,10 +192,70 @@ def test_resume_trajectory_bit_identical(tmp_path, kw):
                          "run.ckpt_every": CKPT_AT}), device="cpu")
     res = tapi.run(_spec(d, **{**kw, "run.steps": STEPS}),
                    device="cpu")["history"]
-    assert res["step"][0] == CKPT_AT
+    # on failure, say where the runs part: the resume point, the
+    # checkpoints on disk, and the first step whose loss bits differ
+    ckpts = CheckpointManager(d).all_steps()
+    assert res["step"][0] == CKPT_AT, (res["step"], ckpts)
     assert ref["step"][-len(res["step"]):] == res["step"]
-    assert ref["loss"][-len(res["loss"]):] == res["loss"]
+    first = next((s for s, a, b in zip(res["step"], ref["loss"][CKPT_AT:],
+                                       res["loss"]) if a != b), None)
+    assert ref["loss"][-len(res["loss"]):] == res["loss"], (
+        f"first differing step {first}: uninterrupted {ref['loss']}, "
+        f"resumed {res['loss']}, checkpoints {ckpts}")
     _assert_same(ref["final_params"], res["final_params"])
+
+
+def test_trajectory_independent_of_thread_count():
+    """A candidate cause of a resume mismatch ruled out: the trajectory of
+    the resume test's first case is the same bits at 1, 2 and 3 torch
+    threads (reductions split by thread would move it)."""
+    runs = []
+    try:
+        for n in (1, 2, 3):
+            torch.set_num_threads(n)
+            h = tapi.run(_spec(), device="cpu")["history"]
+            runs.append((h["loss"], _bits(h["final_params"])))
+    finally:
+        torch.set_num_threads(2)
+    for loss, bits in runs[1:]:
+        assert loss == runs[0][0]
+        assert all(torch.equal(bits[k], runs[0][1][k]) for k in bits)
+
+
+def test_matmul_bits_independent_of_operand_alignment():
+    """Another ruled out: at the tiny model's shapes (M = 4 x 15 rows) the
+    float32 GEMM gives the same bits whatever the operands' alignment
+    (MKL may take alignment-dependent paths outside its CNR mode)."""
+    g = torch.Generator().manual_seed(0)
+    for (M, K, N) in ((60, 128, 128), (60, 128, 512), (60, 512, 128)):
+        a0, b0 = torch.randn(M, K, generator=g), torch.randn(K, N, generator=g)
+        want = (a0 @ b0).numpy().tobytes()
+        for off in (1, 2, 3, 4, 8, 15):
+            a = torch.empty(M * K + 16)[off:off + M * K].view(M, K)
+            b = torch.empty(K * N + 16)[off:off + K * N].view(K, N)
+            a.copy_(a0)
+            b.copy_(b0)
+            assert (a @ b).numpy().tobytes() == want, (M, K, N, off)
+
+
+def test_async_save_error_is_raised(tmp_path, monkeypatch):
+    """A failed asynchronous write is not lost: the next ``wait()`` (and
+    so ``train()``'s end) raises it, instead of a later resume silently
+    restarting from step 0."""
+    mgr = CheckpointManager(str(tmp_path))
+
+    def broken(*a, **k):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(np, "savez", broken)
+    mgr.save(3, _params(), base_seed=0, blocking=False)
+    with pytest.raises(RuntimeError, match="asynchronous checkpoint") as e:
+        mgr.wait()
+    assert isinstance(e.value.__cause__, OSError)
+    mgr.wait()                              # reported once
+    with pytest.raises(RuntimeError, match="asynchronous checkpoint"):
+        tapi.run(_spec(str(tmp_path / "run"), **{
+            "run.steps": 2, "run.ckpt_every": 1}), device="cpu")
 
 
 def test_resume_skips_consumed_batches(tmp_path):

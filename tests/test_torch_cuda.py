@@ -302,6 +302,8 @@ def test_port_loads_no_jax_or_reference():
         "    importlib.import_module(m.name)\n"
         "import repro_torch.tasks, repro_torch.peft, repro_torch.launch\n"
         "import repro_torch.launch.cli, repro_torch.peft.lora\n"
+        "import repro_torch.obs, repro_torch.launch.report\n"
+        "import repro_torch.launch.replay\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -464,7 +464,7 @@ def test_validator_accepts_presets(name):
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
     ({"swarm.n_shards": 2}, "swarm.workers"),
-    ({"telemetry.runs_dir": "runs"}, "telemetry.enabled"),
+    ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_validator_still_rejects_unported(override, path):
     spec = tapi.with_overrides(tapi.preset("fo-opt13b"), override)
