@@ -94,6 +94,28 @@ when it fails:
 14. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
+15. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+             this process holds no 13B weights, one part after another:
+             at OPT-13B full width (the main path's spec, 12 steps, 2 loss
+             shards of 8 rows, 2 worker processes ``python -m
+             repro_torch.launch swarm --attach ... --device cuda``
+             sharing this one card) a calm run (every worker exits 0, no
+             respawn, each worker's K1-K4 launches consistent with the
+             commits it folded and the probes it ran); the same spec in
+             this process through ``api.run`` (scalar stream bit for bit,
+             launches as ``expected_launches``); a crash/rejoin run
+             (``swarm.chaos_crash=1:3``: one crash exit, one respawn that
+             draws its weights from the seed and folds the commit log;
+             stream bit for bit); ``launch replay`` of the calm run.
+             Then at OPT-1.3B (``opt_1_3b``, 4 loss shards): 4 workers
+             against one process (stream, and the designated worker's
+             final checkpoint against the final parameters, bit for bit)
+             and a rejoin from a checkpoint (``run.ckpt_every=4``,
+             ``swarm.chaos_crash=1:5``).  Crash runs and the 1.3B
+             4-worker run hold contributions up to 2.5 s (the same
+             schedule each run) so every worker joins before the end.  Wall times, steps a second,
+             steady bytes a step beside 4·|θ| for an FO gradient
+             exchange, each worker's peak memory.
 
 For a quick kernel check: ``--phases build,rng,parity``.
 
@@ -853,8 +875,11 @@ def expected_launches(spec, params, steps):
     """Launches by kernel that ``steps`` steps of ``spec`` must make,
     from ``costs.step_counts`` and, for stacked one_sided probes, K3's
     probe groups of each layer's active probes (``fmm.probe_groups``).
-    ZO modes here run virtual and paired, momentum materialized."""
+    ZO modes here run virtual and paired, momentum materialized.  A swarm
+    spec's sharded step runs the paired probe forward once a loss shard
+    and one commit sweep."""
     from repro_torch import api, estimators
+    from repro_torch.api.validate import swarm_active, swarm_shards
     from repro_torch.core import rng, zo
     from repro_torch.fused import matmul as fmm
     from repro_torch.models import lm
@@ -865,6 +890,7 @@ def expected_launches(spec, params, steps):
     leaves = len(zspec.paths)
     base = rng.fold_py(spec.run.seed, 0xC0FFEE)
     mode = spec.optimizer.mode
+    shards = swarm_shards(spec) if swarm_active(spec) else 1
     n = {"zo_axpy_2d": 0, "flash_attention": 0, "pmatmul_stack": 0,
          "pmatmul": 0}
     for t in range(steps):
@@ -880,7 +906,7 @@ def expected_launches(spec, params, steps):
         n["zo_axpy_2d"] += leaves * est.step_counts()["axpy_sweeps"]
         inner = e.inner if e.name == "importance" else e.name
         if inner in ("two_point", "averaged"):     # one paired forward each
-            pairs = 1 if inner == "two_point" else e.q
+            pairs = (1 if inner == "two_point" else e.q) * shards
             n["flash_attention"] += L * pairs
             n["pmatmul_stack"] += 6 * L * pairs
             n["pmatmul"] += 2 * pairs
@@ -1258,6 +1284,243 @@ def phase_resume():
                          "run bit for bit")
 
 
+# The swarm phase.  Each part drives ``swarm.driver.run_swarm`` (local
+# worker processes ``python -m repro_torch.launch swarm --attach ...
+# --device cuda``, which all share this one card) or ``api.run`` on the
+# same spec, one after another, never at once.
+SWARM_STEPS = 12
+# crash runs and the 1.3B 4-worker run hold each contribution up to this
+# long (the same schedule in every run; no committed bit moves), so a worker
+# that starts seconds after the others, or a respawned one, joins while
+# steps remain
+SWARM_DELAY_MS = 2500.0
+# The smaller model of the 4-worker, checkpoint and rejoin parts: OPT-1.3B
+# (24 layers, d_model 2048, bf16), the smallest bf16 OPT of the configs.
+# The bench variant (4 layers, d_model 512) is float32 in the config, K2,
+# K3 and K4 take bf16 only, and a worker draws its weights from the spec,
+# so on the card its forward raises.
+SWARM_SMALL_VARIANT = "opt_1_3b"
+SWARM_STREAM = ("loss", "projected_grad", "seed", "arrived", "shard_losses",
+                "active_layers", "layer_sel")
+
+
+def swarm_spec(base, root, tag, **over):
+    """``base`` with its run directory (and checkpoints, when asked) under
+    ``root/tag``."""
+    from repro_torch import api
+    d = os.path.join(root, tag)
+    over = {"telemetry.runs_dir": os.path.join(d, "runs"), **over}
+    if over.get("run.ckpt_every"):
+        over["run.ckpt_dir"] = os.path.join(d, "ckpt")
+    return api.with_overrides(base, over)
+
+
+def swarm_rows(spec):
+    from repro_torch import obs
+    (rid,) = obs.list_runs(spec.telemetry.runs_dir)
+    rd = obs.load_run(rid, spec.telemetry.runs_dir)
+    return rd.dir, rd.steps
+
+
+def swarm_stream(spec):
+    return [[r.get(k) for k in SWARM_STREAM] for r in swarm_rows(spec)[1]]
+
+
+def swarm_run(tag, spec, leaves, L, *, crash_at=None):
+    """One swarm through ``run_swarm`` on the card: its summary, with the
+    workers' exits, results and launches checked.  Every worker folds
+    every commit (one K1 sweep of ``leaves`` launches each, from its
+    starting point), and every probe forward it runs launches K2 ``L``
+    times, K3 ``6L`` and K4 twice.  With ``crash_at`` (the step of the
+    spec's one crash), one worker exits ``CRASH_EXIT``, one is respawned,
+    and the respawned worker reaches the live step from at least
+    ``crash_at`` committed steps (a checkpoint and the commits it
+    folds)."""
+    import torch
+    from repro_torch.swarm import chaos, driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    summ = driver.run_swarm(spec, device="cuda")
+    wall = time.perf_counter() - t
+    steps, workers = spec.run.steps, spec.swarm.workers
+    res = [r for r in summ["worker_results"] if r is not None]
+    log(f"[swarm] {tag}: {workers} workers, {steps} steps, "
+        f"{summ['n_shards']} shards, in {wall:.1f} s, "
+        f"{steps / wall:.3f} steps/s (process start and weights included; "
+        f"coordinator {summ['wall_s']:.1f} s; median step "
+        f"{summ['steady_step_s']} s; the workers time-slice one card, so "
+        f"this says nothing of a swarm with a card per worker); "
+        f"exits {summ['worker_exits']}, respawns {summ['respawns']}, "
+        f"epochs {summ['membership_epochs']}, straggler steps "
+        f"{summ['straggler_steps']}, steady bytes/step "
+        f"{summ['steady_bytes_per_step']:.0f}")
+    for r in res:
+        if not r["joined"]:
+            log(f"[swarm] {tag}: a worker did not join: {r}")
+            continue
+        log(f"[swarm] {tag}: worker {r['worker_id']} on {r['device']}: "
+            f"set-up {r['build_s']:.2f} s, from step {r['restored_step']} "
+            f"+ {r['folded']} folded commits in {r['fold_s']:.3f} s, "
+            f"{r['steps_applied']} steps; peak memory {r['peak_gib']} GiB; "
+            f"launches {r['launches']}")
+    exits = list(summ["worker_exits"])
+    if crash_at is not None:
+        if exits.count(chaos.CRASH_EXIT) != 1 or summ["respawns"] != 1:
+            raise SystemExit(f"swarm {tag}: exits {exits}, respawns "
+                             f"{summ['respawns']}: want one crash and one "
+                             "respawn")
+        exits.remove(chaos.CRASH_EXIT)
+        if not any(r["worker_id"] >= workers and r["joined"]
+                   and r["restored_step"] + r["folded"] >= crash_at
+                   for r in res):
+            raise SystemExit(f"swarm {tag}: the respawned worker did not "
+                             f"rejoin from {crash_at} committed steps")
+    elif summ["respawns"]:
+        raise SystemExit(f"swarm {tag}: {summ['respawns']} respawns")
+    if exits != [0] * len(exits) or len(res) != workers:
+        raise SystemExit(f"swarm {tag}: worker exits {summ['worker_exits']}"
+                         f", {len(res)} results")
+    for r in res:
+        if not r["joined"]:
+            raise SystemExit(f"swarm {tag}: a worker did not join: {r}")
+        n = r["launches"]
+        fwd = n["flash_attention"] // L
+        if (r["device"] != "cuda"
+                or r["steps_applied"] != steps
+                or n["zo_axpy_2d"] != leaves * (steps - r["restored_step"])
+                or fwd < 1 or n["flash_attention"] != L * fwd
+                or n["pmatmul_stack"] != 6 * L * fwd
+                or n["pmatmul"] != 2 * fwd):
+            raise SystemExit(f"swarm {tag}: worker {r['worker_id']}: {r}")
+    return summ, wall
+
+
+def swarm_single(tag, spec, keep=False):
+    """The same spec in this process through ``api.run``: launches against
+    ``expected_launches``; with ``keep``, the final parameters as a host
+    copy."""
+    import torch
+    from repro_torch.train.trainer import host_copy
+    hist, launches, peak = run_counted(f"swarm {tag}", spec)
+    check_launches(f"swarm {tag}", spec, hist["final_params"], launches)
+    final = host_copy(hist["final_params"]) if keep else None
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return final
+
+
+def swarm_same_params(tag, spec, final):
+    """The designated worker's checkpoint at the last step against
+    ``final`` (a host copy), bit for bit."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    ck = {p: torch.empty_like(t) for p, t in final.items()}
+    _, step, _, _ = CheckpointManager(spec.run.ckpt_dir).restore(ck)
+    bad = [p for p in final if not torch.equal(bits(ck[p]), bits(final[p]))]
+    log(f"[swarm] {tag}: the designated worker's checkpoint at step {step}"
+        f" against the single process's final parameters: "
+        f"{len(final) - len(bad)} of {len(final)} leaves bit-equal")
+    if step != spec.run.steps or bad:
+        raise SystemExit(f"swarm {tag}: checkpoint step {step}, leaves "
+                         f"differing {bad[:4]}")
+
+
+def phase_swarm(full):
+    """The seed-synchronized swarm, after every 13B weight of this process
+    is freed: at OPT-13B full width (``full``: the main path's spec, 2
+    loss shards of 8 rows, 2 workers on this one card) a calm run, the
+    same spec in one process (streams bit for bit, launches as
+    expected), a crash/rejoin run (stream bit for bit), and ``launch
+    replay`` of the calm run; then at OPT-1.3B a 4-worker run against one
+    process (stream and the designated worker's final checkpoint, bit for
+    bit) and a rejoin from a checkpoint."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import zo
+    from repro_torch.launch import replay
+    from repro_torch.swarm import shardstep
+
+    root = os.path.join(ROOT, "build", "chip_smoke_swarm")
+    shutil.rmtree(root, ignore_errors=True)
+    n_theta = shardstep.trainable_param_count(full)
+    log(f"[swarm] {smi('name,power.limit')}; an FO gradient exchange moves "
+        f"4·|θ| = {4 * n_theta} bytes a step at OPT-13B")
+    try:
+        L = api.derive(full).model_cfg.num_layers
+        leaves = len(zo.leaf_items(shardstep.abstract_trainable(full)[0]))
+        calm = swarm_spec(full, root, "calm")
+        swarm_run("13B calm", calm, leaves, L)
+        single = swarm_spec(full, root, "single")
+        swarm_single("13B single-process", single)
+        same = swarm_stream(calm) == swarm_stream(single)
+        log(f"[swarm] 13B: swarm stream == single-process stream "
+            f"({len(SWARM_STREAM)} keys, {full.run.steps} rows): {same}")
+        if not same:
+            raise SystemExit("swarm: the swarm's stream is not the single "
+                             "process's bit for bit")
+        crash = swarm_spec(full, root, "crash", **{
+            "swarm.chaos_crash": "1:3", "swarm.chaos_delay_ms":
+            SWARM_DELAY_MS})
+        swarm_run("13B crash/rejoin", crash, leaves, L, crash_at=3)
+        same = swarm_stream(crash) == swarm_stream(calm)
+        log(f"[swarm] 13B: crash/rejoin stream == calm stream: {same}")
+        if not same:
+            raise SystemExit("swarm: the crash/rejoin run is not the calm "
+                             "run bit for bit")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rep = replay.replay_run(swarm_rows(calm)[0], device="cuda")
+        torch.cuda.synchronize()
+        log(f"[swarm] 13B: launch replay of the calm run on "
+            f"{rep['device']}: steps {rep['param_start']}..{rep['step']} in "
+            f"{time.perf_counter() - t:.1f} s; ok {rep['ok']}; failures "
+            f"{rep['failures'][:3]}")
+        if not rep["ok"]:
+            raise SystemExit("swarm: the calm run did not replay")
+        del rep
+
+        small = api.with_overrides(full, {
+            "model.variant": SWARM_SMALL_VARIANT, "swarm.n_shards": 4})
+        L = api.derive(small).model_cfg.num_layers
+        # a 1.3B step takes milliseconds: hold contributions so that all
+        # four workers, which start seconds apart, join
+        w4 = swarm_spec(small, root, "w4", **{
+            "swarm.workers": 4, "run.ckpt_every": SWARM_STEPS,
+            "swarm.chaos_delay_ms": SWARM_DELAY_MS})
+        swarm_run("1.3B 4 workers", w4, leaves, L)
+        final = swarm_single("1.3B single-process",
+                             swarm_spec(small, root, "w1"), keep=True)
+        same = swarm_stream(w4) == swarm_stream(swarm_spec(small, root, "w1"))
+        log(f"[swarm] 1.3B: 4-worker stream == single-process stream: "
+            f"{same}")
+        if not same:
+            raise SystemExit("swarm: the 4-worker stream is not the single "
+                             "process's bit for bit")
+        swarm_same_params("1.3B 4 workers", w4, final)
+        rejoin = swarm_spec(small, root, "rejoin", **{
+            "run.ckpt_every": 4, "swarm.chaos_crash": "1:5",
+            "swarm.chaos_delay_ms": SWARM_DELAY_MS})
+        summ, _ = swarm_run("1.3B rejoin from a checkpoint", rejoin, leaves,
+                            L, crash_at=5)
+        if not any(r and r["worker_id"] >= 2 and r["restored_step"] > 0
+                   for r in summ["worker_results"]):
+            raise SystemExit("swarm: the respawned worker did not start "
+                             "from a checkpoint")
+        same = swarm_stream(rejoin) == swarm_stream(w4)
+        log(f"[swarm] 1.3B: rejoin stream == 4-worker stream: {same}")
+        if not same:
+            raise SystemExit("swarm: the rejoin run is not the 4-worker run "
+                             "bit for bit")
+        swarm_same_params("1.3B rejoin", rejoin, final)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 TRACE_STEPS, TRACE_WARM = 20, 2     # steady steps, warm-up steps
 
 
@@ -1494,7 +1757,7 @@ SOURCES = {
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
           "replay", "estimators", "momentum", "tasks", "peft", "fo",
-          "resume")
+          "resume", "swarm")
 
 
 def main() -> int:
@@ -1563,6 +1826,10 @@ def main() -> int:
         phase_fo(cfg)
     if "resume" in phases:
         phase_resume()
+    if "swarm" in phases:
+        phase_swarm(api.with_overrides(api.preset("lezo-opt13b"), {
+            **MAIN_OVERRIDES, "run.steps": SWARM_STEPS,
+            "swarm.workers": 2}))
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows.get(name, {})

@@ -6,9 +6,11 @@ optimizer mode (``zo`` with any estimator, ``zo_momentum``, ``fo``),
 over the full model or a PEFT tree (LoRA, prefix), any axpy backend, any
 forward backend, the loss-shard quorum and checkpoint/resume, under the
 reference's rules, with telemetry (tracing, run directories, optimizer
-health) under the reference's telemetry rules.  Meshes and the swarm
-raise :class:`SpecError` naming the field and saying "not yet ported",
-before any parameter is allocated.
+health) under the reference's telemetry rules, and the seed-synchronized
+swarm (``swarm.*``, the decomposed sharded step of ``swarm/shardstep.py``)
+under the reference's swarm rules.  Meshes raise :class:`SpecError`
+naming the field and saying "not yet ported", before any parameter is
+allocated.
 """
 from repro_torch import configs
 from repro_torch import tasks as tasks_mod
@@ -128,8 +130,6 @@ def validate(spec: Experiment):
         _require(o.mode == "zo", "optimizer.mode",
                  "forward_backend='virtual' requires mode='zo'")
 
-    _ported(sw.workers == 0 and sw.n_shards == 0, "swarm.workers",
-            "the multi-process swarm")
     # telemetry node, under the reference's rules: a sink only makes
     # sense on an enabled tracer, an enabled tracer needs a sink, and the
     # health knobs need a run directory to write to
@@ -175,7 +175,72 @@ def validate(spec: Experiment):
                  "required when run.ckpt_every > 0")
     _require(r.keep_ckpts >= 1, "run.keep_ckpts",
              f"must be >= 1, got {r.keep_ckpts}")
+
+    # swarm node (DESIGN.md §14): the scalar-sync topology must close
+    # before any process is spawned — a worker that dies on a bad spec
+    # after attach is a much worse failure mode than a SpecError here
+    from repro_torch.swarm import chaos as chaos_mod  # stdlib-only
+
+    _require(sw.workers >= 0, "swarm.workers",
+             f"must be >= 0 (0 = swarm off), got {sw.workers}")
+    _require(sw.n_shards >= 0, "swarm.n_shards",
+             f"must be >= 0 (0 = auto: one shard per worker), "
+             f"got {sw.n_shards}")
+    _require(0.0 < sw.quorum <= 1.0, "swarm.quorum",
+             f"must be in (0, 1], got {sw.quorum}")
+    _require(sw.step_deadline_s > 0, "swarm.step_deadline_s",
+             f"must be > 0, got {sw.step_deadline_s}")
+    _require(0 <= sw.port <= 65535, "swarm.port",
+             f"must be a TCP port in [0, 65535] (0 = ephemeral), "
+             f"got {sw.port}")
+    _require(0.0 <= sw.chaos_drop < 1.0, "swarm.chaos_drop",
+             f"must be in [0, 1) — dropping every message forever "
+             f"deadlocks the run, got {sw.chaos_drop}")
+    _require(sw.chaos_delay_ms >= 0, "swarm.chaos_delay_ms",
+             f"must be >= 0, got {sw.chaos_delay_ms}")
+    try:
+        chaos_mod.parse_crashes(sw.chaos_crash)
+    except ValueError as ex:
+        raise SpecError("swarm.chaos_crash", str(ex)) from None
+    try:
+        chaos_mod.parse_partitions(sw.chaos_partition)
+    except ValueError as ex:
+        raise SpecError("swarm.chaos_partition", str(ex)) from None
+
+    if swarm_active(spec):
+        shards = swarm_shards(spec)
+        _require(o.mode == "zo", "optimizer.mode",
+                 "the swarm StepCommit carries one projected-gradient "
+                 "scalar — mode='zo' only (momentum/fo state cannot be "
+                 "reconstructed from the (seed, g) log)")
+        _require(e.name == "two_point", "estimator.name",
+                 "swarm shard contributions are (l+, l-) pairs reduced "
+                 "to a single g — estimator='two_point' only")
+        _require(rt.n_loss_shards == 1, "runtime.n_loss_shards",
+                 "the swarm shards the loss itself (swarm.n_shards); "
+                 "disable the in-trainer quorum simulation")
+        _require(r.batch_size % shards == 0, "run.batch_size",
+                 f"must divide into the swarm's {shards} loss shards, "
+                 f"got {r.batch_size}")
+        _require(sw.workers <= shards, "swarm.workers",
+                 f"more workers than loss shards would leave "
+                 f"{sw.workers - shards} workers permanently idle; "
+                 f"raise swarm.n_shards (= {shards}) or drop workers")
     return mcfg
+
+
+def swarm_active(spec: Experiment) -> bool:
+    """True when the spec selects the decomposed sharded step
+    (``repro_torch.swarm.shardstep``) — any workers, or explicit shards."""
+    return spec.swarm.workers > 0 or spec.swarm.n_shards > 0
+
+
+def swarm_shards(spec: Experiment) -> int:
+    """Resolved loss-shard count: explicit ``swarm.n_shards`` wins, else
+    one shard per worker.  Fixed by the spec — NOT by how many processes
+    actually show up — so commits are worker-count-invariant."""
+    sw = spec.swarm
+    return sw.n_shards if sw.n_shards > 0 else max(sw.workers, 1)
 
 
 def n_drop_for(spec: Experiment, num_layers: int) -> int:

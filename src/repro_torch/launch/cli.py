@@ -6,6 +6,8 @@
     python -m repro_torch.launch specs    --out artifacts/specs
     python -m repro_torch.launch report   [RUN] [--runs-root DIR]
     python -m repro_torch.launch replay   [RUN] [--step K] [--device cpu]
+    python -m repro_torch.launch swarm    --preset swarm-smoke [--device cpu]
+    python -m repro_torch.launch swarm    --attach HOST:PORT [--device cpu]
 
 Every shared flag is *generated* from the spec schema —
 ``--<section>.<field>`` for each field, plus the reference's short
@@ -17,10 +19,16 @@ implications (``train --optimizer mezo`` always means n_drop=0) <
 ``train`` writes a run directory under ``artifacts/runs/`` by default,
 as the reference does; ``--runs-dir`` moves it and ``--no-runlog`` turns
 it off.  ``report`` renders a run directory as markdown; ``replay``
-re-executes it and exits 1 when any recorded scalar differs.
+re-executes it and exits 1 when any recorded scalar differs.  ``swarm``
+runs the seed-synchronized swarm (a coordinator here, ``swarm.workers``
+local worker processes, 2 unless the spec sets workers or shards) and
+writes a run directory the same way; ``--attach`` joins a running
+coordinator as one worker.
 
 One flag the reference lacks: ``--device`` (default ``cuda``) on
-``train``, ``evaluate`` and ``replay``; the CPU runs only when asked
+``train``, ``evaluate``, ``replay`` and ``swarm`` (where the workers
+take it too: local workers on the card share that one card); the CPU
+runs only when asked
 with ``--device cpu``, and without a card the default fails rather than
 falling back.  ``specs`` has no ``--markdown``.  The module entry points
 ``repro_torch.launch.train`` and ``.evaluate`` are thin shims that
@@ -201,6 +209,37 @@ def _cmd_replay(ns):
     return rep
 
 
+def _cmd_swarm(ns):
+    from repro_torch.obs import runlog
+    from repro_torch.swarm import driver
+
+    if ns.attach:
+        result = driver.run_attached(ns.attach, device=ns.device)
+        # one line: the driver reads a worker's result as its last line
+        print(json.dumps(result))
+        return result
+    # like train: every coordinator writes a run directory by default —
+    # the (seed, g) log is both the recovery substrate and the replay
+    # evidence, so a swarm without one defeats the point
+    implied = {}
+    flags = getattr(ns, _SPEC_DEST, None) or {}
+    user_set = {kv.partition("=")[0] for kv in ns.set}
+    if (not ns.no_runlog and "telemetry.runs_dir" not in flags
+            and "telemetry.runs_dir" not in user_set):
+        implied["telemetry.runs_dir"] = runlog.DEFAULT_RUNS_DIR
+    if ("swarm.workers" not in flags and "swarm.workers" not in user_set
+            and "swarm.n_shards" not in flags
+            and "swarm.n_shards" not in user_set):
+        implied["swarm.workers"] = 2
+    spec = build_spec(ns, implied)
+    summary = driver.run_swarm(spec, respawn=not ns.no_respawn,
+                               device=ns.device)
+    print(json.dumps(summary, indent=1))
+    if ns.out:
+        _write_json(ns.out, {"spec": api.to_dict(spec), "summary": summary})
+    return summary
+
+
 def _cmd_specs(ns):
     os.makedirs(ns.out, exist_ok=True)
     written = {}
@@ -247,11 +286,23 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
             ap.add_argument("--out", default=None,
                             help="also write the markdown here (default: "
                                  "<run_dir>/report.md only)")
+    elif cmd == "swarm":
+        ap.add_argument("--attach", default=None, metavar="HOST:PORT",
+                        help="join an existing swarm as a worker instead "
+                             "of starting a coordinator (the spec ships "
+                             "over the wire)")
+        ap.add_argument("--no-respawn", action="store_true",
+                        help="do not respawn workers that die mid-run")
+        ap.add_argument("--no-runlog", action="store_true",
+                        help="write no run directory (default: one under "
+                             "artifacts/runs/)")
+        ap.add_argument("--out", default=None,
+                        help="also write the summary JSON here")
 
 
 COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate,
             "specs": _cmd_specs, "report": _cmd_report,
-            "replay": _cmd_replay}
+            "replay": _cmd_replay, "swarm": _cmd_swarm}
 
 
 def build_parser() -> argparse.ArgumentParser:

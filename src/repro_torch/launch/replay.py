@@ -15,7 +15,9 @@ re-executed and checked bit for bit:
      regenerating each step's batch through the data path ``train()``
      uses, and compare every recorded scalar of every step up to ``k``
      (loss, g per probe, coefficients, active parameter counts, ε, lr,
-     layer selection) as float32 bits;
+     layer selection; on a swarm run also the quorum mask ``arrived``,
+     with which a sharded step is re-executed, and the per-shard
+     ``shard_losses``) as float32 bits;
   4. wherever a checkpoint falls inside the replayed range, compare the
      re-executed parameters with it bitwise.
 
@@ -69,15 +71,35 @@ def _compare_row(t: int, row: Dict, metrics: Dict,
                 failures.append(
                     f"step {t} {key}: recorded {rec.tolist()!r} != "
                     f"re-executed {new.tolist()!r}")
-    for key in ("layer_sel", "active_layers"):
+    # swarm rows (DESIGN.md §14) add the quorum mask ``arrived`` and the
+    # per-shard ±εz losses the commit was reduced over — a degraded step
+    # replays with the recorded mask, so the shard sets match exactly
+    for key in ("layer_sel", "active_layers", "arrived"):
         if key in row and key in metrics:
             rec = np.asarray(row[key], np.int64).reshape(-1)
             new = np.asarray(metrics[key], np.int64).reshape(-1)
-            matched[key] = (new.tolist() if key == "layer_sel"
-                            else int(new[0]))
+            matched[key] = (int(new[0]) if key == "active_layers"
+                            else new.tolist())
             if not np.array_equal(rec, new):
                 failures.append(f"step {t} {key}: recorded {rec.tolist()!r}"
                                 f" != re-executed {new.tolist()!r}")
+    if "shard_losses" in row and "shard_losses" in metrics:
+        rec_sl = {str(kk): _f32(v) for kk, v in row["shard_losses"].items()}
+        new_sl = {str(kk): _f32(v)
+                  for kk, v in metrics["shard_losses"].items()}
+        matched["shard_losses"] = {kk: [float(x) for x in v]
+                                   for kk, v in new_sl.items()}
+        if sorted(rec_sl) != sorted(new_sl):
+            failures.append(
+                f"step {t} shard_losses: recorded shards "
+                f"{sorted(rec_sl)} != re-executed {sorted(new_sl)}")
+        else:
+            for kk in sorted(rec_sl):
+                if rec_sl[kk].tobytes() != new_sl[kk].tobytes():
+                    failures.append(
+                        f"step {t} shard_losses[{kk}]: recorded "
+                        f"{rec_sl[kk].tolist()!r} != re-executed "
+                        f"{new_sl[kk].tolist()!r}")
     return matched
 
 
@@ -185,8 +207,15 @@ def replay_run(run: Optional[str] = None, step: Optional[int] = None,
             done = True
             break
         batch = trainer._model_batch(np_batch)
-        params, state, metrics = trainer._step(params, state, batch, t,
-                                               base_seed)
+        if getattr(trainer._step, "sharded", False):
+            # swarm runs re-execute with the recorded quorum mask, so a
+            # short-handed commit reduces the very same shard subset
+            params, state, metrics = trainer._step(
+                params, state, batch, t, base_seed,
+                arrived=rows[t].get("arrived"))
+        else:
+            params, state, metrics = trainer._step(params, state, batch, t,
+                                                   base_seed)
         matched = _compare_row(t, rows[t], metrics, failures)
         # a checkpoint inside the replayed range pins the parameter bits
         if (t + 1) in ckpt_steps and (t + 1) <= k:

@@ -24,6 +24,11 @@ Quorum (``n_loss_shards`` > 1, ``quorum`` < 1): the batch is split into
 ``n_loss_shards`` shards and each loss averages the shards that
 "arrived", a subset fixed by the batch's content as in the reference.
 
+Swarm specs (``swarm.workers`` or ``swarm.n_shards`` set): the step is
+``swarm.shardstep.ShardedZOStep``, the decomposed probe/reduce/commit
+that every swarm worker runs, so a lone ``train()`` on a swarm spec
+commits the swarm's bits.
+
 The best parameters are kept as a host copy (``host_copy``), as the
 reference keeps numpy arrays: at OPT-13B that is 25.7 GB of host memory
 and one device-to-host copy for each improvement.
@@ -239,6 +244,19 @@ class Trainer:
 
     def _build_step(self):
         mode, e = self.tcfg.mode, self.est_cfg
+        if self.experiment is not None:
+            from repro_torch.api.validate import swarm_active, swarm_shards
+            if swarm_active(self.experiment):
+                # swarm spec (DESIGN.md §14): run the decomposed sharded
+                # step — the same probe/reduce/commit a swarm worker
+                # runs, so a lone process and an N-worker swarm commit
+                # bit-identical steps on this spec.  Stateless, so
+                # replay's checkpoint fast-forward works.
+                from repro_torch.swarm import shardstep
+                self._step = shardstep.from_trainer(
+                    self, swarm_shards(self.experiment))
+                self.state = {}
+                return
         if mode == "zo":
             self._step, init = estimators.make_step(self.loss_fn, self.spec,
                                                     e)

@@ -31,8 +31,8 @@ def test_preset_json_identical(name):
 
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
-    ({"swarm.workers": 2}, "swarm.workers"),
-    ({"swarm.n_shards": 2}, "swarm.workers"),
+    ({"model.arch": "deepseek-coder-33b"}, "model.arch"),
+    ({"model.arch": "granite-moe-1b-a400m"}, "model.arch"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
     ({"model.arch": "qwen3-14b"}, "model.arch"),
 ])
@@ -110,7 +110,10 @@ def test_port_imports_neither_jax_nor_reference():
     for mod in ("obs/__init__.py", "obs/trace.py", "obs/sinks.py",
                 "obs/metrics.py", "obs/profiler.py", "obs/runtime.py",
                 "obs/health.py", "obs/runlog.py", "launch/report.py",
-                "launch/replay.py", "launch/cli.py"):
+                "launch/replay.py", "launch/cli.py", "swarm/__init__.py",
+                "swarm/commit.py", "swarm/proto.py", "swarm/chaos.py",
+                "swarm/shardstep.py", "swarm/coordinator.py",
+                "swarm/worker.py", "swarm/driver.py"):
         assert mod in scanned, mod
 
 

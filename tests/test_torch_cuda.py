@@ -207,6 +207,39 @@ def test_paired_equals_unpaired_on_card(dev):
         assert torch.equal(one, pair[i]), (i, one.item(), pair[i].item())
 
 
+@pytest.mark.parametrize("overrides", [
+    {"runtime.backend": "pallas"},                     # K1 perturbs in place
+    {"runtime.backend": "pallas", "runtime.forward_backend": "virtual"}])
+def test_swarm_probe_leaves_params_bit_equal_on_card(dev, overrides):
+    """The swarm's shard probe on the card never changes θ, through K1's
+    in-place ±εz (materialized) or K3/K4 (virtual); the commit is K1."""
+    from repro_torch import api
+    from repro_torch.swarm import shardstep
+    from repro_torch.train.trainer import Trainer
+    spec = api.with_overrides(api.preset("swarm-smoke"), overrides)
+    cfg = api.derive(spec).model_cfg.with_(dtype="bfloat16")
+    p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev)
+    tr = Trainer.from_spec(spec, device=dev, params=p)
+    data = tr.make_dataset(16)
+    batch = tr._model_batch({k: data[k][:8] for k in
+                             ("tokens", "labels", "loss_mask")})
+    before = {n: t.detach().clone() for n, t in zo.leaf_items(tr.params)}
+    kzo.counter.launches = kfa.counter.launches = 0
+    for sh in shardstep.shard_batch(batch, 2):
+        got = tr._step.probe_shard(tr.params, sh, 17)
+        assert got.shape == (2,) and np.isfinite(got).all()
+    assert kfa.counter.launches > 0
+    assert (kzo.counter.launches > 0) == (
+        spec.runtime.forward_backend == "materialized")
+    for n, t in zo.leaf_items(tr.params):
+        assert torch.equal(t.view(torch.int16) if t.dtype == torch.bfloat16
+                           else t, before[n].view(torch.int16)
+                           if t.dtype == torch.bfloat16 else before[n]), n
+    kzo.counter.launches = 0
+    tr._step.apply_commit(tr.params, 17, 0.5)
+    assert kzo.counter.launches == len(before)
+
+
 @pytest.mark.parametrize("P,M,K,N,trans", [
     (3, 100, 72, 130, False),            # per-thread W loads
     (4, 257, 128, 256, False),
@@ -289,8 +322,9 @@ def test_peft_forward_on_the_card(dev, kind):
 
 
 def test_port_loads_no_jax_or_reference():
-    """Importing every port module (and chip_smoke.py) loads no module
-    of jax or of the JAX package: checked in a fresh interpreter."""
+    """Importing every port module (and chip_smoke.py), the swarm's
+    worker entry among them, loads no module of jax or of the JAX
+    package: checked in a fresh interpreter."""
     import os
     import subprocess
     import sys
@@ -304,6 +338,11 @@ def test_port_loads_no_jax_or_reference():
         "import repro_torch.launch.cli, repro_torch.peft.lora\n"
         "import repro_torch.obs, repro_torch.launch.report\n"
         "import repro_torch.launch.replay\n"
+        "import repro_torch.swarm, repro_torch.swarm.shardstep\n"
+        "import repro_torch.swarm.coordinator, repro_torch.swarm.worker\n"
+        "import repro_torch.swarm.driver\n"
+        "from repro_torch.launch import cli\n"
+        "cli.build_parser().parse_args(['swarm', '--attach', 'h:1'])\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

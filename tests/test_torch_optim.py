@@ -463,7 +463,7 @@ def test_validator_accepts_presets(name):
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
-    ({"swarm.n_shards": 2}, "swarm.workers"),
+    ({"model.arch": "internlm2-1.8b"}, "model.arch"),
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_validator_still_rejects_unported(override, path):
