@@ -95,27 +95,31 @@ when it fails:
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
 15. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
-             this process holds no 13B weights, one part after another:
-             at OPT-13B full width (the main path's spec, 12 steps, 2 loss
-             shards of 8 rows, 2 worker processes ``python -m
-             repro_torch.launch swarm --attach ... --device cuda``
-             sharing this one card) a calm run (every worker exits 0, no
-             respawn, each worker's K1-K4 launches consistent with the
-             commits it folded and the probes it ran); the same spec in
-             this process through ``api.run`` (scalar stream bit for bit,
-             launches as ``expected_launches``); a crash/rejoin run
+             this process holds no 13B weights.  First K1-K4 against
+             their plain versions at the shapes one worker's loss shard
+             gives them (the ``swarm_shapes`` rows of the kernels line).
+             Then one part after another: at OPT-13B full width (the main
+             path's spec, 12 steps, 2 loss shards of 8 rows, 2 worker
+             processes ``python -m repro_torch.launch swarm --attach ...
+             --device cuda`` sharing this one card) a calm run (every
+             worker exits 0, no respawn, each worker's K1-K4 launches
+             consistent with the commits it folded and the probes it
+             ran); the same spec in this process through ``api.run``
+             (scalar stream bit for bit, launches as
+             ``expected_launches``); a crash/rejoin run
              (``swarm.chaos_crash=1:3``: one crash exit, one respawn that
              draws its weights from the seed and folds the commit log;
              stream bit for bit); ``launch replay`` of the calm run.
-             Then at OPT-1.3B (``opt_1_3b``, 4 loss shards): 4 workers
-             against one process (stream, and the designated worker's
-             final checkpoint against the final parameters, bit for bit)
-             and a rejoin from a checkpoint (``run.ckpt_every=4``,
-             ``swarm.chaos_crash=1:5``).  Crash runs and the 1.3B
-             4-worker run hold contributions up to 2.5 s (the same
-             schedule each run) so every worker joins before the end.  Wall times, steps a second,
-             steady bytes a step beside 4·|θ| for an FO gradient
-             exchange, each worker's peak memory.
+             Then at OPT-1.3B (``opt_1_3b``, 4 loss shards) one run of 4
+             workers with a crash at step 5 and a rejoin from the step-4
+             checkpoint (``run.ckpt_every=4``, ``swarm.chaos_crash=1:5``)
+             against one process: stream, and the designated worker's
+             final checkpoint against the final parameters, bit for bit.
+             Each step waits until every running worker has attached, so
+             all join at step 0 and a respawned worker by the step after
+             the crash.  Wall times, steps a second, steady bytes a step
+             beside 4·|θ| for an FO gradient exchange, each worker's
+             peak memory.
 
 For a quick kernel check: ``--phases build,rng,parity``.
 
@@ -1289,12 +1293,7 @@ def phase_resume():
 # --device cuda``, which all share this one card) or ``api.run`` on the
 # same spec, one after another, never at once.
 SWARM_STEPS = 12
-# crash runs and the 1.3B 4-worker run hold each contribution up to this
-# long (the same schedule in every run; no committed bit moves), so a worker
-# that starts seconds after the others, or a respawned one, joins while
-# steps remain
-SWARM_DELAY_MS = 2500.0
-# The smaller model of the 4-worker, checkpoint and rejoin parts: OPT-1.3B
+# The smaller model of the 4-worker, checkpoint and rejoin part: OPT-1.3B
 # (24 layers, d_model 2048, bf16), the smallest bf16 OPT of the configs.
 # The bench variant (4 layers, d_model 512) is float32 in the config, K2,
 # K3 and K4 take bf16 only, and a worker draws its weights from the spec,
@@ -1302,6 +1301,126 @@ SWARM_DELAY_MS = 2500.0
 SWARM_SMALL_VARIANT = "opt_1_3b"
 SWARM_STREAM = ("loss", "projected_grad", "seed", "arrived", "shard_losses",
                 "active_layers", "layer_sel")
+
+
+CLOSE_TOL = "|err| <= 2^-7|plain| + 2^-8 max|plain|"
+
+
+def swarm_parity(shards, eps):
+    """Each kernel against its plain version at the shapes one loss shard
+    of a swarm worker gives it, for each ``(tag, cfg, rows)`` of
+    ``shards`` (``rows`` of the shard's batch, 63 positions each): K3 for
+    the paired probe at (D, d_ff), (d_ff, D) and (D, D), K4 for the tied
+    head, K2 for the paired attention; and K1 at the model's stacked FFN
+    leaf with a quarter of its layers active, as LeZO at sparsity 0.75
+    commits.  Returns, by kernel, a list of rows (shape, error, times,
+    bound)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import zo_axpy as kzo
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf = torch.bfloat16
+    S, w_seed = 63, 0xBEEF
+    out = {name: [] for name in SOURCES}
+
+    def row(name, shape, err, fn, plain, lib, nbytes, tol=CLOSE_TOL,
+            **work):
+        b_ms, b_by = bound(nbytes, **work)
+        r = dict(shape=shape, max_abs_err=err, tolerance=tol,
+                 ms=time_ms(fn, reps=20), plain_ms=time_ms(plain, reps=2),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(lib, reps=20) if lib else None)
+        out[name].append(r)
+        log(f"[swarm parity] {name} {shape}: max|err| {err:.3e}; "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), library {r['library_ms']}")
+
+    for tag, cfg, B in shards:
+        D, Fd, V, H = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads
+        dh, M = cfg.head_dim, B * S
+        args = ((w_seed, w_seed), (eps, -eps), (True, True))
+        for K, N in ((D, Fd), (Fd, D), (D, D)):
+            x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
+            w = (torch.randn((K, N), generator=g, device=dev, dtype=bf)
+                 * K ** -0.5)
+            err = close(fmm.pmatmul_stack(x, w, *args),
+                        fref.pmatmul_stack(x, w, *args),
+                        f"pmatmul_stack {tag} shard ({K}, {N})")
+            row("pmatmul_stack", f"{tag} shard: x (2, {M}, {K}) @ W ({K}, "
+                f"{N}), P = 2 active", err,
+                lambda: fmm.pmatmul_stack(x, w, *args),
+                lambda: fref.pmatmul_stack(x, w, *args),
+                lambda: torch.matmul(x, w),
+                (x.numel() + w.numel() + 2 * M * N) * 2,
+                tensor_flops=2.0 * 2 * M * K * N,
+                instructions=K * N * RNG_OPS)
+            del x, w
+        tok = torch.randn((V, D), generator=g, device=dev, dtype=bf) * 0.02
+        h = torch.randn((B, S, D), generator=g, device=dev, dtype=bf)
+        kw = dict(trans=True, ld=D)
+        err = close(fmm.pmatmul(h, tok.T, w_seed, eps, True, **kw),
+                    fref.pmatmul(h, tok.T, w_seed, eps, True, **kw),
+                    f"pmatmul head {tag} shard")
+        row("pmatmul", f"{tag} shard: h ({B}, {S}, {D}) @ tok.T ({D}, {V})"
+            " trans", err,
+            lambda: fmm.pmatmul(h, tok.T, w_seed, eps, True, **kw),
+            lambda: fref.pmatmul(h, tok.T, w_seed, eps, True, **kw),
+            lambda: torch.matmul(h, tok.T),
+            (h.numel() + tok.numel() + M * V) * 2,
+            tensor_flops=2.0 * M * D * V, instructions=D * V * RNG_OPS)
+        del tok, h
+        q = torch.randn((2 * B, S, H, 1, dh), generator=g, device=dev,
+                        dtype=bf)
+        k = torch.randn((2 * B, S, H, dh), generator=g, device=dev, dtype=bf)
+        v = torch.randn((2 * B, S, H, dh), generator=g, device=dev, dtype=bf)
+        err = close(kfa.flash_attention(q, k, v, causal=True),
+                    kfa.flash_attention_plain(q, k, v, causal=True),
+                    f"flash_attention {tag} shard")
+        qs, ks, vs = (t.reshape(2 * B, S, H, dh).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
+        row("flash_attention", f"{tag} shard: ({2 * B}, {S}, {H}, 1, {dh})",
+            err, lambda: kfa.flash_attention(q, k, v, causal=True),
+            lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            4 * q.numel() * 2,
+            tensor_flops=4.0 * 2 * B * H * dh * (S * (S + 1) // 2))
+        del q, k, v, qs, ks, vs
+    if shards:
+        # K1 at the last model's stacked FFN leaf (L, D * d_ff)
+        L = cfg.num_layers
+        theta = (torch.randn((L, D * Fd), generator=g, device=dev, dtype=bf)
+                 * 0.02)
+        mask = torch.zeros(L, dtype=torch.bool)
+        mask[torch.randperm(L, generator=torch.Generator().manual_seed(5))[
+            :L // 4]] = True
+        seed, decay = 0x1234567, 1.0          # weight decay 0, as the spec
+        got, want = theta.clone(), theta.clone()
+        kzo.zo_axpy_2d_(got, mask, seed, -eps, decay)
+        kref.zo_axpy_2d_(want, mask, seed, -eps, decay)
+        torch.cuda.synchronize()
+        on = mask.to(dev)
+        ulps = bf16_ulps(got[on], want[on]).max().item()
+        if ulps > 1 or not torch.equal(got[~on].view(torch.int16),
+                                       theta[~on].view(torch.int16)):
+            raise SystemExit(f"zo_axpy_2d {tag} ({L}, {D * Fd}): {ulps} "
+                             "bf16 ulp or a masked-off row changed")
+        n_act = int(mask.sum()) * D * Fd
+        row("zo_axpy_2d", f"{tag}: ({L}, {D * Fd}), {int(mask.sum())} of {L}"
+            " rows active", (got.float() - want.float()).abs().max().item(),
+            lambda: kzo.zo_axpy_2d_(got, mask, seed, -eps, decay),
+            lambda: kref.zo_axpy_2d_(want, mask, seed, -eps, decay), None,
+            n_act * 2 * 2, tol=f"masked rows bit-equal; active <= 1 bf16 ulp"
+            f" (got {ulps})", instructions=n_act * K1_OPS)
+        del theta, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def swarm_spec(base, root, tag, **over):
@@ -1431,16 +1550,20 @@ def swarm_same_params(tag, spec, final):
 
 def phase_swarm(full):
     """The seed-synchronized swarm, after every 13B weight of this process
-    is freed: at OPT-13B full width (``full``: the main path's spec, 2
-    loss shards of 8 rows, 2 workers on this one card) a calm run, the
-    same spec in one process (streams bit for bit, launches as
-    expected), a crash/rejoin run (stream bit for bit), and ``launch
-    replay`` of the calm run; then at OPT-1.3B a 4-worker run against one
-    process (stream and the designated worker's final checkpoint, bit for
-    bit) and a rejoin from a checkpoint."""
+    is freed.  First each kernel against its plain version at the shapes
+    a worker's shard gives it (``swarm_parity``; returned by kernel for
+    the ``kernels`` line).  Then at OPT-13B full width (``full``: the main
+    path's spec, 2 loss shards of 8 rows, 2 workers on this one card) a
+    calm run, the same spec in one process (streams bit for bit,
+    launches as expected), a crash/rejoin run (stream bit for bit), and
+    ``launch replay`` of the calm run; then at OPT-1.3B one run of 4
+    workers with a crash at step 5 and a rejoin from the step-4
+    checkpoint, against one process (stream and the designated worker's
+    final checkpoint, bit for bit)."""
     import torch
     from repro_torch import api
     from repro_torch.core import zo
+    from repro_torch.api.validate import swarm_shards
     from repro_torch.launch import replay
     from repro_torch.swarm import shardstep
 
@@ -1449,6 +1572,13 @@ def phase_swarm(full):
     n_theta = shardstep.trainable_param_count(full)
     log(f"[swarm] {smi('name,power.limit')}; an FO gradient exchange moves "
         f"4·|θ| = {4 * n_theta} bytes a step at OPT-13B")
+    small = api.with_overrides(full, {
+        "model.variant": SWARM_SMALL_VARIANT, "swarm.n_shards": 4,
+        "swarm.workers": 4})
+    shard_rows = [(tag, api.derive(sp).model_cfg,
+                   sp.run.batch_size // swarm_shards(sp))
+                  for tag, sp in (("13B", full), ("1.3B", small))]
+    parity = swarm_parity(shard_rows, full.optimizer.eps)
     try:
         L = api.derive(full).model_cfg.num_layers
         leaves = len(zo.leaf_items(shardstep.abstract_trainable(full)[0]))
@@ -1462,9 +1592,7 @@ def phase_swarm(full):
         if not same:
             raise SystemExit("swarm: the swarm's stream is not the single "
                              "process's bit for bit")
-        crash = swarm_spec(full, root, "crash", **{
-            "swarm.chaos_crash": "1:3", "swarm.chaos_delay_ms":
-            SWARM_DELAY_MS})
+        crash = swarm_spec(full, root, "crash", **{"swarm.chaos_crash": "1:3"})
         swarm_run("13B crash/rejoin", crash, leaves, L, crash_at=3)
         same = swarm_stream(crash) == swarm_stream(calm)
         log(f"[swarm] 13B: crash/rejoin stream == calm stream: {same}")
@@ -1484,41 +1612,29 @@ def phase_swarm(full):
             raise SystemExit("swarm: the calm run did not replay")
         del rep
 
-        small = api.with_overrides(full, {
-            "model.variant": SWARM_SMALL_VARIANT, "swarm.n_shards": 4})
         L = api.derive(small).model_cfg.num_layers
-        # a 1.3B step takes milliseconds: hold contributions so that all
-        # four workers, which start seconds apart, join
+        leaves = len(zo.leaf_items(shardstep.abstract_trainable(small)[0]))
         w4 = swarm_spec(small, root, "w4", **{
-            "swarm.workers": 4, "run.ckpt_every": SWARM_STEPS,
-            "swarm.chaos_delay_ms": SWARM_DELAY_MS})
-        swarm_run("1.3B 4 workers", w4, leaves, L)
-        final = swarm_single("1.3B single-process",
-                             swarm_spec(small, root, "w1"), keep=True)
-        same = swarm_stream(w4) == swarm_stream(swarm_spec(small, root, "w1"))
-        log(f"[swarm] 1.3B: 4-worker stream == single-process stream: "
-            f"{same}")
+            "run.ckpt_every": 4, "swarm.chaos_crash": "1:5"})
+        summ, _ = swarm_run("1.3B 4 workers, crash at step 5", w4, leaves,
+                            L, crash_at=5)
+        if not any(r and r["worker_id"] >= small.swarm.workers
+                   and r["restored_step"] > 0
+                   for r in summ["worker_results"]):
+            raise SystemExit("swarm: the respawned worker did not start "
+                             "from a checkpoint")
+        w1 = swarm_spec(small, root, "w1")
+        final = swarm_single("1.3B single-process", w1, keep=True)
+        same = swarm_stream(w4) == swarm_stream(w1)
+        log(f"[swarm] 1.3B: 4-worker stream (crash and rejoin from a "
+            f"checkpoint) == single-process stream: {same}")
         if not same:
             raise SystemExit("swarm: the 4-worker stream is not the single "
                              "process's bit for bit")
         swarm_same_params("1.3B 4 workers", w4, final)
-        rejoin = swarm_spec(small, root, "rejoin", **{
-            "run.ckpt_every": 4, "swarm.chaos_crash": "1:5",
-            "swarm.chaos_delay_ms": SWARM_DELAY_MS})
-        summ, _ = swarm_run("1.3B rejoin from a checkpoint", rejoin, leaves,
-                            L, crash_at=5)
-        if not any(r and r["worker_id"] >= 2 and r["restored_step"] > 0
-                   for r in summ["worker_results"]):
-            raise SystemExit("swarm: the respawned worker did not start "
-                             "from a checkpoint")
-        same = swarm_stream(rejoin) == swarm_stream(w4)
-        log(f"[swarm] 1.3B: rejoin stream == 4-worker stream: {same}")
-        if not same:
-            raise SystemExit("swarm: the rejoin run is not the 4-worker run "
-                             "bit for bit")
-        swarm_same_params("1.3B rejoin", rejoin, final)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return parity
 
 
 TRACE_STEPS, TRACE_WARM = 20, 2     # steady steps, warm-up steps
@@ -1827,9 +1943,11 @@ def main() -> int:
     if "resume" in phases:
         phase_resume()
     if "swarm" in phases:
-        phase_swarm(api.with_overrides(api.preset("lezo-opt13b"), {
+        parity = phase_swarm(api.with_overrides(api.preset("lezo-opt13b"), {
             **MAIN_OVERRIDES, "run.steps": SWARM_STEPS,
             "swarm.workers": 2}))
+        for name, shapes in parity.items():
+            rows.setdefault(name, {})["swarm_shapes"] = shapes
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows.get(name, {})

@@ -23,6 +23,12 @@ mid-step reassigns its shards immediately, so even a quorum=1.0 run
 survives a crash; checkpoint writes are delegated per commit to the
 lowest live worker id.
 
+A step boundary waits (up to ``_JOIN_GRACE_S``) until ``expected``
+workers are attached: the driver keeps that count at the worker
+processes it has started and not yet seen exit, so every worker it
+spawns, or respawns after a crash, joins at a known step whatever the
+machine's load (at least one, as the reference's, when nobody sets it).
+
 The coordinator holds no parameters and launches nothing on the card,
 except the exact ‖z‖ of ``telemetry.health_norms`` rows, drawn on
 ``device`` (the card unless the caller asks for the CPU).  It publishes
@@ -44,7 +50,7 @@ from repro_torch.core import rng
 from repro_torch.swarm import commit as commit_mod
 from repro_torch.swarm import proto
 
-_JOIN_GRACE_S = 120.0   # max wait for the first worker to attach
+_JOIN_GRACE_S = 120.0   # max wait for the expected workers to attach
 _POLL_S = 0.05
 
 
@@ -194,6 +200,8 @@ class Coordinator:
         self.commit_log: List[dict] = []
         self.straggler_steps = 0
         self.stale_rejections = 0
+        # worker processes started and still running (set by the driver)
+        self.expected = 0
 
     # ----------------------------------------------------------- threads
     def _accept_loop(self):
@@ -320,20 +328,26 @@ class Coordinator:
                 continue
             self._handle(kind, peer, msg, ledger, step)
 
-    def _wait_for_workers(self, step: int):
+    def _wait_for_workers(self, ledger: StepLedger, step: int):
+        """Admit hellos until ``expected`` workers (at least one) are
+        attached; after ``_JOIN_GRACE_S`` go on with those attached, and
+        raise when there are none.  Contributions that arrive meanwhile
+        go to ``ledger``."""
         t0 = time.monotonic()
-        while not self._live_wids():
+        while len(self._live_wids()) < max(1, self.expected):
             if self._joiners:
                 self._process_boundary(step)
                 continue
             if time.monotonic() - t0 > _JOIN_GRACE_S:
+                if self._live_wids():
+                    return
                 raise TimeoutError("no worker attached within "
                                    f"{_JOIN_GRACE_S}s")
             try:
                 kind, peer, msg = self._events.get(timeout=_POLL_S * 4)
             except queue.Empty:
                 continue
-            self._handle(kind, peer, msg, None, step)
+            self._handle(kind, peer, msg, ledger, step)
 
     def _record_step(self, t: int, seed: int, scal: Dict[str, Any],
                      pairs) -> None:
@@ -375,11 +389,10 @@ class Coordinator:
         for t in range(self.steps):
             ts = time.perf_counter()
             self._process_boundary(t)
-            if not self._live_wids():
-                self._wait_for_workers(t)
             seed = int(np.uint32(rng.fold_py(self.base_seed, t)))
             ledger = StepLedger(self.run_id or "", t, seed, self.epoch,
                                 self.n_shards)
+            self._wait_for_workers(ledger, t)
             # drain anything already queued (e.g. eager contributions)
             while True:
                 try:

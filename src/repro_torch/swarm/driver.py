@@ -13,7 +13,10 @@ wire-shipped spec, and folds the committed ``(seed, g)`` log forward to
 the live step.  A worker that exits 0 has seen the run end and is not
 respawned (the reference's supervisor respawns it too when it exits
 before the coordinator returns; its replacement then finds the run
-over).
+over).  The coordinator's ``expected`` follows the workers that are
+running, so a step waits until every one of them has attached: each
+starts from step 0, and a respawned worker rejoins by the step after
+the crash, however long its process takes to start.
 
 Local workers on a card all share that one card (``device="cuda"`` is
 ``cuda:0`` in every worker): the card time-slices between them, so a
@@ -118,6 +121,7 @@ def run_swarm(spec, *, respawn: bool = True,
                             and respawns[slot] < _MAX_RESPAWNS_PER_SLOT):
                         respawns[slot] += 1
                         procs[slot] = spawn()
+                coord.expected = sum(w is not None for w in procs)
             time.sleep(0.1)
 
     sup = threading.Thread(target=supervise, daemon=True)
@@ -125,6 +129,7 @@ def run_swarm(spec, *, respawn: bool = True,
         with lock:
             for _ in range(spec.swarm.workers):
                 procs.append(spawn())
+            coord.expected = len(procs)
         sup.start()
         summary = coord.serve()
     finally:

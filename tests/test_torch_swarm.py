@@ -12,18 +12,21 @@ tolerance); the reference's g fed to the port's ``apply_commit`` gives
 parameters within rtol 1e-6, atol 1e-9 of the reference's
 (``tests/test_torch_zo.py``'s axpy tolerance); and a 10-step
 single-process sharded run records the reference's integer fields
-exactly and its losses within rtol 1e-3 (``tests/test_torch_api.py``'s
-trajectory band).
+exactly, its losses within rtol 1e-3 (``tests/test_torch_api.py``'s
+trajectory band) and its g within 8 ulps of the loss over 2 eps.
 
 Within the port: a probe leaves the parameters bit-equal on every
 forward backend; the commit cannot see arrival order or a duplicate;
-and one process playing 1, 2 or 4 workers over 4 shards commits the
-single-process trainer's rows bit for bit.
+one process playing 1, 2 or 4 workers over 4 shards commits the
+single-process trainer's rows bit for bit; and the coordinator's first
+step waits for every worker it expects.
 """
 import dataclasses
 import json
 import pathlib
 import socket
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +59,7 @@ torch.set_num_threads(2)              # six xdist workers share the CPUs
 PROBE_RTOL = 1e-5                     # tests/test_torch_step.py
 AXPY_RTOL, AXPY_ATOL = 1e-6, 1e-9     # tests/test_torch_zo.py
 LOSS_RTOL = 1e-3                      # tests/test_torch_api.py
+G_LOSS_ULPS = 8                       # g's band in ulps of the loss / 2 eps
 BACKENDS = [
     # (port overrides, reference overrides): the reference's CPU default,
     # and the port's virtual forward (plain versions on the CPU) against
@@ -347,7 +351,9 @@ def _rows(runs_root):
 def test_ten_step_sharded_run_matches_reference(backends, tmp_path):
     """10 steps of the single-process sharded trainer in both packages
     from the same weights: seed, arrived, active_layers and layer_sel
-    equal; loss and g within the trajectory band."""
+    equal; loss within the trajectory band, and g = (l+ - l-) / 2 eps
+    within ``G_LOSS_ULPS`` float32 ulps of the loss over 2 eps (the g
+    that two losses a few ulps apart give)."""
     t_over, j_over = backends
     ts, js = _spec_pair(t_over, j_over, **{"swarm.n_shards": 4})
     js = dataclasses.replace(js, telemetry=dataclasses.replace(
@@ -367,6 +373,11 @@ def test_ten_step_sharded_run_matches_reference(backends, tmp_path):
         assert sorted(a["shard_losses"]) == sorted(b["shard_losses"])
     np.testing.assert_allclose([r["loss"] for r in trows],
                                [r["loss"] for r in jrows], rtol=LOSS_RTOL)
+    ulp = np.spacing(np.float32(max(r["loss"] for r in jrows)))
+    np.testing.assert_allclose(
+        [r["projected_grad"] for r in trows],
+        [r["projected_grad"] for r in jrows], rtol=0,
+        atol=G_LOSS_ULPS * ulp / (2 * ts.optimizer.eps))
 
 
 @pytest.mark.parametrize("edit", ["shard_losses", "arrived", "none"])
@@ -529,3 +540,34 @@ def test_worker_assignments_commit_the_trainers_rows(overrides):
         for tr in workers:
             b = _bits(tr.params)
             assert all(torch.equal(b[p], final[p]) for p in final)
+
+
+def test_first_step_waits_for_every_expected_worker(tmp_path):
+    """With ``expected = 2`` (what ``driver.run_swarm`` sets for two
+    workers) the first step waits for a worker that attaches 1.5 s after
+    the other: both join at step 0, fold nothing and apply every step
+    (without the wait a 4-step run is over before the second attaches)."""
+    from repro_torch.swarm.coordinator import Coordinator
+    from repro_torch.swarm.worker import Worker
+    spec = tapi.with_overrides(tapi.preset("swarm-smoke"), {
+        "run.steps": 4, "telemetry.runs_dir": str(tmp_path)})
+    coord = Coordinator(spec, device="cpu")
+    coord.expected = 2
+    results = [None, None]
+
+    def work(i, delay_s):
+        time.sleep(delay_s)
+        results[i] = Worker(coord.host, coord.port, device="cpu").run()
+
+    threads = [threading.Thread(target=work, args=(i, d), daemon=True)
+               for i, d in enumerate((0.0, 1.5))]
+    for th in threads:
+        th.start()
+    summary = coord.serve()
+    for th in threads:
+        th.join(timeout=60)
+    assert summary["workers_seen"] == 2 and summary["straggler_steps"] == 0
+    for r in results:
+        assert r is not None and r["joined"], results
+        assert (r["restored_step"], r["folded"], r["steps_applied"]) == \
+            (0, 0, 4), results

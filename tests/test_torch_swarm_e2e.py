@@ -7,11 +7,9 @@ checkpoint) bit for bit, with 2 and with 4 workers.
 
 The swarm runs as a subprocess with a time limit, so a broken worker
 fails the test instead of hanging it; spawned processes run torch on
-one thread (six test workers share the CPUs).  The coordinator starts
-stepping once one worker has attached, and a tiny step takes
-milliseconds, so every run here holds contributions up to
-``DELAY_MS`` (a chaos delay: the same schedule every run, no committed
-bit moves) to give each worker time to start and join.
+one thread (six test workers share the CPUs).  The coordinator's first
+step waits until every worker the driver started has attached, so each
+worker joins at step 0 however slowly its process starts.
 """
 import json
 import os
@@ -32,7 +30,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 STREAM_KEYS = ("loss", "projected_grad", "seed", "arrived", "shard_losses",
                "active_layers", "layer_sel")
 SWARM_TIMEOUT_S = 240
-DELAY_MS = 800.0
 
 
 def _env():
@@ -47,8 +44,7 @@ def _spec(tmp, **over):
     """``swarm-smoke`` with the run directory and checkpoints in ``tmp``."""
     over = {"run.steps": 10, "run.ckpt_every": 5,
             "run.ckpt_dir": str(tmp / "ckpt"),
-            "telemetry.runs_dir": str(tmp / "runs"),
-            "swarm.chaos_delay_ms": DELAY_MS, **over}
+            "telemetry.runs_dir": str(tmp / "runs"), **over}
     return api.with_overrides(api.preset("swarm-smoke"), over), over
 
 
@@ -111,6 +107,7 @@ def test_swarm_bit_identical_to_single_process(tmp_path, over):
     assert 0 < summary["steady_bytes_per_step"] < 2048
     results = summary["worker_results"]
     assert all(r["device"] == "cpu" and r["joined"]
+               and r["restored_step"] == r["folded"] == 0
                and r["steps_applied"] == 10 for r in results), results
     assert len(rows_sw) == len(rows_sp) == 10
     assert _stream(rows_sw) == _stream(rows_sp)
