@@ -86,15 +86,34 @@ when it fails:
              (``runtime.peft=prefix``) on the weights of ``tasks``,
              materialized,
              3 steps each: step seconds, peak memory, K1/K2 launches.
-13. fo     — K2's backward against autograd through its plain version at
+13. serve  — the serving path at OPT-13B full width and depth, on the
+             weights of the earlier phases (or from a seed): lockstep
+             ``launch.serve.generate`` at batch 4, prompt 1024, 32 new
+             tokens (K2 launches must equal the 40 layers of the prefill;
+             K2 against its plain version on that prefill's last inputs,
+             the ``serve_shapes`` row); the paged engine
+             (``repro_torch.serving.Engine``: page_size 16, prefill chunk
+             256, 8 lanes, max_seq 1024, 513 pages, 32 new tokens, greedy)
+             over 16 requests of 64-700 tokens, 8 sharing a 512-token
+             prefix: (a) sharing off under fenced spans (TTFT, decode step
+             and prefill chunk ms, tok/s, peak memory, arena GiB), (b)
+             ``prefix_cache`` and (c) ``priorities=2, preempt`` with 4
+             high-priority requests after 8 steps, each bit-equal to (a),
+             2 shapes run and the pool empty after; 4 requests against
+             ``generate`` at batch 1 (first-token logits within
+             ``SERVE_LOGIT_STEPS`` bf16 steps; streams equal or parting at
+             a near-tie); the plain serving operations' times; a
+             ``torch.profiler`` profile of one steady decode step and the
+             idle share over 10.
+14. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-14. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+15. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
-15. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+16. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
              this process holds no 13B weights.  First K1-K4 against
              their plain versions at the shapes one worker's loss shard
              gives them (the ``swarm_shapes`` rows of the kernels line).
@@ -1171,6 +1190,426 @@ def phase_peft(hold, cfg):
         del trainer, hist
 
 
+# The serve phase: the port's serving path at OPT-13B full width and
+# depth.  The engine's settings (``spec.serving``), its 16 requests
+# (prompt lengths from the seed in 64-700, 8 of them sharing a 512-token
+# prefix) and the lockstep batch.  Engine against lockstep: the first
+# token's logits within SERVE_LOGIT_STEPS bf16 steps (``close``), the
+# prediction written before the first chip run; token streams equal, or
+# the first difference explained by a near-tie (the lockstep's top-2 gap
+# below the measured max |delta logits| there).
+SERVE_OVERRIDES = {
+    "serving.page_size": 16, "serving.prefill_chunk": 256,
+    "serving.max_lanes": 8, "serving.max_seq": 1024, "serving.n_pages": 513,
+    "serving.max_new_tokens": 32}
+SERVE_REQUESTS, SERVE_SHARED, SERVE_PREFIX = 16, 8, 512
+SERVE_LOCKSTEP = (4, 1024, 32)       # batch, prompt, new tokens
+SERVE_LOGIT_STEPS = 16
+SEED_BASE = 1000                     # request seeds; inactive lanes are 0
+
+
+def serve_requests(vocab, seed=0):
+    """(rid, tokens) of the serve phase's requests: even rids share a
+    512-token prefix and run to 513-700 tokens, odd rids 64-700."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, SERVE_PREFIX).tolist()
+    reqs = []
+    for rid in range(SERVE_REQUESTS):
+        if rid % 2 == 0 and rid // 2 < SERVE_SHARED:
+            n = int(rng.integers(SERVE_PREFIX + 1, 701))
+            toks = prefix + rng.integers(0, vocab,
+                                         n - SERVE_PREFIX).tolist()
+        else:
+            toks = rng.integers(0, vocab, int(rng.integers(64, 701))
+                                ).tolist()
+        reqs.append((rid, toks))
+    return reqs
+
+
+def tap_sampler(engine, keep):
+    """Record every (logits, seeds, positions) the engine's sampler sees,
+    on the device (no sync), and return a function that maps (seed,
+    position of the sampled token) to its logits row, for the seeds in
+    ``keep``.  A reading beside the run: the engine samples as before."""
+    import torch
+    seen, sample = [], engine._sample
+
+    def tapped(logits, seeds, positions):
+        seen.append((logits.clone(), seeds.clone(), positions.clone()))
+        return sample(logits, seeds, positions)
+    engine._sample = tapped
+
+    def rows():
+        out = {}
+        for logits, seeds, positions in seen:    # later calls win: a
+            s, p = seeds.tolist(), positions.tolist()  # final chunk
+            for i, (si, pi) in enumerate(zip(s, p)):   # after its others
+                if si in keep:
+                    out[(si, pi)] = logits[i].float().cpu()
+        return out
+    return rows
+
+
+def lockstep_logits(cfg, params, tokens, steps):
+    """The lockstep path's logits for ``steps`` tokens of one prompt
+    (``lm.prefill`` then ``lm.serve_step``, the calls ``generate`` makes,
+    at batch 1), greedy."""
+    import torch
+    from repro_torch.models import lm
+    S = len(tokens)
+    toks = torch.tensor([tokens], device="cuda")
+    logits, caches = lm.prefill(cfg, params, toks, max_seq=S + steps + 1)
+    out = [logits[0].float().cpu()]
+    for i in range(steps - 1):
+        tok = torch.argmax(logits, -1)[:, None]
+        logits, caches = lm.serve_step(cfg, params, caches, tok, S + i)
+        out.append(logits[0].float().cpu())
+    del caches
+    return out
+
+
+def serve_engine(cfg, params, spec, session=None):
+    from repro_torch import serving
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    return serving.Engine(cfg, params, spec.serving, obs=session,
+                          device="cuda")
+
+
+def drain(engine, reqs, late=(), after=0):
+    """``engine.run`` of ``reqs``, the ``late`` ones submitted after
+    ``after`` steps: tokens by rid, results, wall seconds."""
+    import torch
+    t = time.perf_counter()
+    results = []
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(after if late else 0):
+        results.extend(engine.step())
+    results.extend(engine.run(list(late)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return {r.rid: r.tokens for r in results}, results, wall
+
+
+def serve_plain_ops(cfg, spec):
+    """The serving path's plain operations (no TPU kernel stands behind
+    them: the reference computes them with ``einsum`` and XLA gathers) at
+    the engine's and the lockstep's shapes, one layer: time on the card
+    and the bytes bound (each input read once, each output written
+    once)."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serving import sampling
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(77)
+    sv = spec.serving
+    KV, dh, V = cfg.n_kv_heads, cfg.head_dim, cfg.vocab
+    B, W, psz = sv.max_lanes, sv.max_seq // sv.page_size, sv.page_size
+    arena = torch.randn((sv.n_pages, psz, KV, dh), generator=g, device=dev,
+                        dtype=bf)
+    pages = torch.randperm(sv.n_pages - 1, generator=g, device=dev)[
+        :B * W].reshape(B, W) + 1
+    kg = arena[pages].reshape(B, -1, KV, dh)
+    q1 = torch.randn((B, 1, KV, 1, dh), generator=g, device=dev, dtype=bf)
+    pos = torch.full((B,), sv.max_seq - 1, device=dev)
+    qc = torch.randn((1, sv.prefill_chunk, KV, 1, dh), generator=g,
+                     device=dev, dtype=bf)
+    cpos = (sv.max_seq - sv.prefill_chunk
+            + torch.arange(sv.prefill_chunk, device=dev))[None]
+    flat = (pages[:, -1] * psz + psz - 1)
+    new = torch.randn((B, KV, dh), generator=g, device=dev, dtype=bf)
+    Bl, Sl = SERVE_LOCKSTEP[0], SERVE_LOCKSTEP[1] + SERVE_LOCKSTEP[2] + 1
+    kc = torch.randn((Bl, Sl, KV, dh), generator=g, device=dev, dtype=bf)
+    ql = torch.randn((Bl, 1, KV, 1, dh), generator=g, device=dev, dtype=bf)
+    logits = torch.randn((B, V), generator=g, device=dev)
+    seeds = torch.arange(B, device=dev) + 1
+    greedy = sampling.make_sampler(0.0, 0)
+    topk = sampling.make_sampler(0.8, 50)
+    kv_b = kg.numel() * 2
+    ops = [
+        ("arena gather (decode: K or V of 8 lanes x 64 pages)",
+         lambda: arena[pages], 2 * kv_b),
+        ("arena scatter (decode: 8 slots, index_copy_)",
+         lambda: arena.view(-1, KV, dh).index_copy_(0, flat, new),
+         2 * new.numel() * 2 + flat.numel() * 8),
+        ("paged_attention decode (8, 1) over 1024",
+         lambda: layers.paged_attention(q1, kg, kg, pos[:, None]),
+         2 * kv_b + 2 * q1.numel() * 2),
+        ("paged_attention prefill chunk (1, 256) over 1024",
+         lambda: layers.paged_attention(qc, kg[:1], kg[:1], cpos),
+         2 * kg[:1].numel() * 2 + 2 * qc.numel() * 2),
+        (f"decode_attention lockstep ({Bl}, 1) over {Sl}",
+         lambda: layers.decode_attention(ql, kc, kc, Sl),
+         2 * kc.numel() * 2 + 2 * ql.numel() * 2),
+        ("sampler greedy (8, 50272)",
+         lambda: greedy(logits, seeds, seeds), logits.numel() * 4),
+        ("sampler T=0.8 top-k 50 (8, 50272)",
+         lambda: topk(logits, seeds, seeds), logits.numel() * 4),
+    ]
+    out = []
+    for name, fn, nbytes in ops:
+        ms = time_ms(fn, reps=20)
+        b_ms, _ = bound(nbytes)
+        out.append({"op": name, "ms": ms, "bound_ms": b_ms})
+        log(f"[serve] plain op {name}: {ms:.4f} ms a layer, bytes bound "
+            f"{b_ms:.4f} ms")
+    return out
+
+
+def phase_serve(hold, cfg):
+    """The serving path at OPT-13B full width and depth on the weights of
+    the earlier phases (or from a seed).  Lockstep ``generate`` at batch
+    4, prompt 1024, 32 tokens (K2 launches = the 40 layers, K2 against
+    its plain version on that prefill's last inputs); the engine over 16
+    requests, sharing off (a), on (b), and with priorities and
+    preemption (c), (b) and (c) bit-equal to (a); 4 requests against the
+    lockstep at batch 1; TTFT, decode and prefill ms, tok/s, memory; the
+    plain operations' times; a profile of a steady decode step and the
+    idle share over 10.  Returns K2's ``serve_shapes`` rows."""
+    import statistics
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import api, obs, serving
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.launch import serve as serve_mod
+
+    params = full_params(hold, cfg)
+    spec = api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, **SERVE_OVERRIDES})
+    api.validate(spec)
+    L, V = cfg.num_layers, cfg.vocab
+    gen = torch.Generator(device="cpu").manual_seed(spec.run.seed)
+
+    # -- lockstep: generate at batch 4, prompt 1024, 32 new tokens
+    Bl, Sl, Gl = SERVE_LOCKSTEP
+    toks = torch.randint(0, V, (Bl, Sl), generator=gen).cuda()
+    last = {}
+
+    def capture(q, k, v, **kw):
+        last.update(q=q, k=k, v=v, kw=kw)
+        return kernel(q, k, v, **kw)
+    kernel = kfa.flash_attention
+    with swap_k2(capture):
+        out, launches, peak, wall = counted(lambda: serve_mod.generate(
+            cfg, params, toks, Gl, max_seq=Sl + Gl + 1))
+    log(f"[serve] lockstep generate ({Bl}, {Sl}) + {Gl}: {wall:.3f} s, "
+        f"{Bl * Gl / wall:.1f} tok/s, peak {peak:.2f} GiB, launches "
+        f"{launches}")
+    if launches != {"zo_axpy_2d": 0, "flash_attention": L,
+                    "pmatmul_stack": 0, "pmatmul": 0}:
+        raise SystemExit(f"serve: lockstep launches {launches}, want K2 "
+                         f"= {L} (one a layer of the prefill) and no other")
+    if tuple(out.shape) != (Bl, Gl) or not bool(
+            ((out >= 0) & (out < V)).all()):
+        raise SystemExit(f"serve: lockstep tokens {tuple(out.shape)} out "
+                         "of shape or vocabulary")
+    q, k, v, kw = last["q"], last["k"], last["v"], last["kw"]
+    err = close(kfa.flash_attention(q, k, v, **kw),
+                kfa.flash_attention_plain(q, k, v, **kw),
+                "flash_attention lockstep prefill")
+    H, dh = q.shape[2], q.shape[-1]
+    qs, ks, vs = (t.reshape(Bl, Sl, H, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    b_ms, b_by = bound(4 * q.numel() * 2,
+                       tensor_flops=4.0 * Bl * H * dh * (Sl * (Sl + 1) // 2))
+    k2_row = dict(
+        shape=f"lockstep prefill: {tuple(q.shape)}, the last layer's "
+              "inputs", launches=launches["flash_attention"],
+        max_abs_err=err, tolerance=CLOSE_TOL,
+        ms=time_ms(lambda: kfa.flash_attention(q, k, v, **kw), reps=20),
+        plain_ms=time_ms(lambda: kfa.flash_attention_plain(q, k, v, **kw),
+                         reps=2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), reps=20))
+    log(f"[serve] K2 at the lockstep prefill {tuple(q.shape)}: max|err| "
+        f"{err:.3e}; {k2_row['ms']:.4f} ms, plain {k2_row['plain_ms']:.3f} "
+        f"ms, SDPA {k2_row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    del q, k, v, qs, ks, vs, last, out, toks
+
+    # -- the engine: (a) sharing off, timed under fenced spans, with the
+    # sampler tapped for the engine-against-lockstep check
+    reqs = serve_requests(V, seed=spec.run.seed)
+    check = [0, 1, 2, 3]                 # two shared-prefix, two not
+    def mk(high=0):                    # the last ``high`` at priority 1
+        return [serving.Request(rid=rid, tokens=t, seed=SEED_BASE + rid,
+                                priority=int(rid >= len(reqs) - high))
+                for rid, t in reqs]
+    sess = obs.session(api.Telemetry(enabled=True, fence=True, ring=8192))
+    eng = serve_engine(cfg, params, spec, sess)
+    arena_gib = sum(t.numel() * t.element_size()
+                    for b in eng.arena.values() for lv in b.values()
+                    for t in lv.values()) / 2 ** 30
+    sample = eng._sample
+    rows = tap_sampler(eng, {SEED_BASE + r for r in check})
+    (base, results, wall), launches, _, _ = counted(
+        lambda: drain(eng, mk()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != {n: 0 for n in launches}:
+        raise SystemExit(f"serve: engine launches {launches}: its "
+                         "attention is plain PyTorch, as the reference's")
+    ttft = sorted(r.ttft for r in results)
+    n_tok = sum(len(t) for t in base.values())
+    dec = [r.dt * 1e3 for r in sess.ring.spans(obs.SERVE_DECODE)]
+    pre = [r.dt * 1e3 for r in sess.ring.spans(obs.SERVE_PREFILL)]
+    log(f"[serve] engine (a) sharing off: {len(results)} requests, "
+        f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+        f"{eng.n_prefill_calls} prefill calls, {eng.n_decode_steps} decode "
+        f"steps, {eng.n_compiles()} compiles; TTFT median "
+        f"{statistics.median(ttft):.3f} s, p90 "
+        f"{ttft[int(0.9 * (len(ttft) - 1))]:.3f} s; decode step median "
+        f"{statistics.median(dec):.2f} ms (fenced span, {len(dec)} "
+        f"steps), prefill chunk median {statistics.median(pre):.2f} ms "
+        f"({len(pre)} chunks); peak {peak:.2f} GiB, arena "
+        f"{arena_gib:.2f} GiB")
+    if (sorted(base) != list(range(SERVE_REQUESTS)) or eng.n_compiles() != 2
+            or any(len(t) != spec.serving.max_new_tokens
+                   or not all(0 <= x < V for x in t)
+                   for t in base.values())):
+        raise SystemExit(f"serve: engine (a) results {sorted(base)}, "
+                         f"{eng.n_compiles()} compiles")
+    if eng.pool.in_use:
+        raise SystemExit(f"serve: (a) left {eng.pool.in_use} pages in use")
+    eng.pool.check_invariants()
+    tapped = rows()
+    eng._sample = sample
+
+    # a steady decode step: 8 lanes decoding, no admission, no retirement
+    steady = [serving.Request(rid=100 + i, tokens=reqs[i][1][:64],
+                              max_new_tokens=48, seed=SEED_BASE + 100 + i)
+              for i in range(spec.serving.max_lanes)]
+    for r in steady:
+        eng.submit(r)
+    while eng.sched.prefilling() or eng.sched.queue:
+        eng.step()
+    for _ in range(2):
+        eng.step()                                        # warm
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t
+    dev_us, op_us = {}, {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            dev_us[e.key] = (e.self_cuda_time_total if us is None else us,
+                             e.count)
+        elif e.key.startswith("aten::"):     # the ops that launched them
+            us = getattr(e, "device_time_total", None)
+            op_us[e.key] = (e.cuda_time_total if us is None else us,
+                            e.count)
+    busy1 = sum(us for us, _ in dev_us.values()) / 1e6
+    log(f"[serve] profile of one steady decode step (8 lanes): wall "
+        f"{one * 1e3:.2f} ms, device busy {busy1 * 1e3:.2f} ms")
+    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[serve] {us / 1e3:9.3f} ms {n:6d} x  {key[:150]}")
+    for key, (us, n) in sorted(op_us.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[serve] op {us / 1e3:9.3f} ms {n:6d} x  {key} (device time "
+            "of its kernels, nested ops included)")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(10):
+            eng.step()
+        torch.cuda.synchronize()
+        wall10 = time.perf_counter() - t
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if us is None else us) / 1e6
+    if busy == 0 or busy1 == 0:
+        raise SystemExit("serve: the decode profile holds no device time")
+    log(f"[serve] 10 steady decode steps: wall {wall10:.3f} s "
+        f"({wall10 * 100:.2f} ms a step), device busy {busy:.3f} s, idle "
+        f"share {1 - busy / wall10:.3f}")
+    eng.run([])
+    sess.close()
+    plain_ops = serve_plain_ops(cfg, spec)
+    del eng, sess
+
+    # (b) prefix sharing, (c) priorities and preemption: tokens bit-equal
+    for tag, over, late in (
+            ("(b) prefix_cache", {"serving.prefix_cache": True}, 0),
+            ("(c) priorities=2 preempt", {"serving.priorities": 2,
+                                          "serving.preempt": True}, 4)):
+        sp = api.with_overrides(spec, over)
+        api.validate(sp)
+        eng = serve_engine(cfg, params, sp)
+        all_reqs = mk(high=late)
+        got, _, wall = drain(eng, all_reqs[:len(all_reqs) - late],
+                             late=all_reqs[len(all_reqs) - late:], after=8)
+        sched = eng.sched
+        log(f"[serve] engine {tag}: {wall:.3f} s, {eng.n_prefill_calls} "
+            f"prefill calls, {eng.n_decode_steps} decode steps, "
+            f"{eng.n_compiles()} compiles, page hit rate "
+            f"{sched.page_hit_rate:.3f}, {sched.cow_copies} COW copies, "
+            f"{sched.preemptions} preemptions")
+        diff = sorted(r for r in base if got.get(r) != base[r])
+        if diff:
+            raise SystemExit(f"serve: engine {tag} tokens differ from (a) "
+                             f"for rids {diff}")
+        if eng.n_compiles() != 2:
+            raise SystemExit(f"serve: {tag} ran {eng.n_compiles()} shapes")
+        if late and not sched.preemptions:
+            raise SystemExit(f"serve: {tag} preempted nothing")
+        if not late and not sched.page_hit_rate > 0:
+            raise SystemExit(f"serve: {tag} shared no page")
+        if sched.trie is not None:
+            sched.trie.evict(sched.trie.reclaimable())
+            sched.trie.check_invariants()
+        if eng.pool.in_use:
+            raise SystemExit(f"serve: {tag} left {eng.pool.in_use} pages")
+        eng.pool.check_invariants()
+        del eng
+
+    # engine against lockstep, 4 requests at batch 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for rid in check:
+        prompt = reqs[rid][1]
+        n = spec.serving.max_new_tokens
+        ls = serve_mod.generate(cfg, params, torch.tensor(
+            [prompt], device="cuda"), n, max_seq=len(prompt) + n + 1)[0]
+        ls = ls.tolist()
+        ls_logits = lockstep_logits(cfg, params, prompt, 1)[0]
+        en_logits = tapped[(SEED_BASE + rid, len(prompt))]
+        steps = bf16_steps(en_logits, ls_logits)
+        worst = max(worst, steps)
+        close(en_logits, ls_logits, f"serve: rid {rid} first-token logits, "
+              "engine against lockstep", steps=SERVE_LOGIT_STEPS)
+        first = next((t for t in range(n) if ls[t] != base[rid][t]), None)
+        msg = (f"[serve] rid {rid} (prompt {len(prompt)}): first-token "
+               f"logits {steps:.2f} bf16 steps apart (max|d| "
+               f"{(en_logits - ls_logits).abs().max().item():.3e}); ")
+        if first is None:
+            log(msg + f"all {n} tokens equal")
+            continue
+        lsl = lockstep_logits(cfg, params, prompt, first + 1)[first]
+        enl = tapped[(SEED_BASE + rid, len(prompt) + first)]
+        gap = (lsl.topk(2).values[0] - lsl.topk(2).values[1]).item()
+        delta = (enl - lsl).abs().max().item()
+        log(msg + f"tokens differ first at step {first}: max|dlogits| "
+            f"{delta:.4e}, lockstep top-2 gap {gap:.4e}")
+        if not gap < delta:
+            raise SystemExit(f"serve: rid {rid} engine and lockstep differ "
+                             f"at step {first} without a near-tie (gap "
+                             f"{gap:.4e} >= max|dlogits| {delta:.4e})")
+    log(f"[serve] engine against lockstep: worst first-token gap "
+        f"{worst:.2f} bf16 steps (gate {SERVE_LOGIT_STEPS})")
+    k2_row["plain_ops"] = plain_ops
+    return [k2_row]
+
+
 # FO at the depths the float32 master weights leave room for on 80 GB:
 # SGD holds bf16 params and grads and float32 masters (8 B a parameter),
 # AdamW two float32 moments more (16 B); OPT-13B has 314.6 M parameters a
@@ -1872,7 +2311,7 @@ SOURCES = {
 
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
-          "replay", "estimators", "momentum", "tasks", "peft", "fo",
+          "replay", "estimators", "momentum", "tasks", "peft", "serve", "fo",
           "resume", "swarm")
 
 
@@ -1935,6 +2374,9 @@ def main() -> int:
         phase_tasks(hold, cfg)
     if "peft" in phases:
         phase_peft(hold, cfg)
+    if "serve" in phases:
+        rows.setdefault("flash_attention", {})["serve_shapes"] = \
+            phase_serve(hold, cfg)
     hold.clear()                     # FO builds its own cut weights
     gc.collect()
     torch.cuda.empty_cache()

@@ -8,9 +8,10 @@ forward backend, the loss-shard quorum and checkpoint/resume, under the
 reference's rules, with telemetry (tracing, run directories, optimizer
 health) under the reference's telemetry rules, and the seed-synchronized
 swarm (``swarm.*``, the decomposed sharded step of ``swarm/shardstep.py``)
-under the reference's swarm rules.  Meshes raise :class:`SpecError`
-naming the field and saying "not yet ported", before any parameter is
-allocated.
+under the reference's swarm rules, and the serving engine's knobs
+(``serving.*``) under the reference's serving rules.  Meshes raise
+:class:`SpecError` naming the field and saying "not yet ported", before
+any parameter is allocated.
 """
 from repro_torch import configs
 from repro_torch import tasks as tasks_mod
@@ -56,6 +57,7 @@ def validate(spec: Experiment):
     m, t, o, e, rt, sw, tel, r = (spec.model, spec.task, spec.optimizer,
                                   spec.estimator, spec.runtime, spec.swarm,
                                   spec.telemetry, spec.run)
+    sv = spec.serving
     mcfg = resolve_model(spec)
     _require(m.seq_len >= 2, "model.seq_len", f"must be >= 2, got {m.seq_len}")
     _require(m.seq_len - 1 <= mcfg.max_seq, "model.seq_len",
@@ -129,6 +131,55 @@ def validate(spec: Experiment):
                  "(no PEFT merge)")
         _require(o.mode == "zo", "optimizer.mode",
                  "forward_backend='virtual' requires mode='zo'")
+
+    # serving engine node (DESIGN.md §12): the pool/bucket arithmetic
+    # must close before any arena is allocated
+    _require(sv.page_size >= 1, "serving.page_size",
+             f"must be >= 1, got {sv.page_size}")
+    _require(sv.n_pages >= 2, "serving.n_pages",
+             f"must be >= 2 (page 0 is the reserved trash page), "
+             f"got {sv.n_pages}")
+    _require(sv.max_lanes >= 1, "serving.max_lanes",
+             f"must be >= 1, got {sv.max_lanes}")
+    _require(sv.prefill_chunk >= 1
+             and sv.prefill_chunk % sv.page_size == 0,
+             "serving.prefill_chunk",
+             f"must be a positive multiple of serving.page_size="
+             f"{sv.page_size}, got {sv.prefill_chunk}")
+    _require(sv.max_seq >= sv.prefill_chunk
+             and sv.max_seq % sv.page_size == 0,
+             "serving.max_seq",
+             f"must be a multiple of serving.page_size={sv.page_size} "
+             f">= prefill_chunk={sv.prefill_chunk}, got {sv.max_seq}")
+    _require(sv.max_new_tokens >= 1, "serving.max_new_tokens",
+             f"must be >= 1, got {sv.max_new_tokens}")
+    _require(sv.max_new_tokens < sv.max_seq, "serving.max_new_tokens",
+             f"must leave room for a prompt inside serving.max_seq="
+             f"{sv.max_seq}, got {sv.max_new_tokens}")
+    # the pool must cover at least the smallest default-budget request
+    # (1-token prompt padded to the chunk, plus the generation budget) —
+    # otherwise every Engine.submit fails and the spec can serve nothing
+    min_span = max(sv.prefill_chunk, 1 + sv.max_new_tokens)
+    min_pages = -(-min_span // sv.page_size)
+    _require(min_pages <= sv.n_pages - 1, "serving.n_pages",
+             f"pool has {sv.n_pages - 1} usable pages (page 0 is trash) "
+             f"but the smallest default-budget request needs {min_pages} "
+             f"({min_span} slots at page_size={sv.page_size})")
+    _require(sv.priorities >= 1, "serving.priorities",
+             f"must be >= 1 priority classes, got {sv.priorities}")
+    if sv.preempt:
+        _require(sv.priorities >= 2, "serving.preempt",
+                 "preemption needs at least two priority classes "
+                 f"(serving.priorities={sv.priorities}) — equal-priority "
+                 "requests never evict each other")
+    _require(sv.temperature >= 0.0, "serving.temperature",
+             f"must be >= 0 (0 = greedy), got {sv.temperature}")
+    _require(sv.top_k >= 0, "serving.top_k",
+             f"must be >= 0 (0 = full vocab), got {sv.top_k}")
+    if sv.eos_id is not None:
+        _require(0 <= sv.eos_id < mcfg.vocab, "serving.eos_id",
+                 f"must be a {mcfg.name} vocab id in [0, {mcfg.vocab}), "
+                 f"got {sv.eos_id}")
 
     # telemetry node, under the reference's rules: a sink only makes
     # sense on an enabled tracer, an enabled tracer needs a sink, and the

@@ -8,6 +8,7 @@
     python -m repro_torch.launch replay   [RUN] [--step K] [--device cpu]
     python -m repro_torch.launch swarm    --preset swarm-smoke [--device cpu]
     python -m repro_torch.launch swarm    --attach HOST:PORT [--device cpu]
+    python -m repro_torch.launch serve    --engine lockstep [--device cpu]
 
 Every shared flag is *generated* from the spec schema —
 ``--<section>.<field>`` for each field, plus the reference's short
@@ -23,14 +24,17 @@ re-executes it and exits 1 when any recorded scalar differs.  ``swarm``
 runs the seed-synchronized swarm (a coordinator here, ``swarm.workers``
 local worker processes, 2 unless the spec sets workers or shards) and
 writes a run directory the same way; ``--attach`` joins a running
-coordinator as one worker.
+coordinator as one worker.  ``serve`` generates from weights drawn from
+the spec's seed for ``--batch`` synthetic prompts: through the paged
+engine (``repro_torch.serving``, ``spec.serving``) or, with ``--engine
+lockstep``, the lockstep loop (``launch/serve.py``).
 
 One flag the reference lacks: ``--device`` (default ``cuda``) on
-``train``, ``evaluate``, ``replay`` and ``swarm`` (where the workers
-take it too: local workers on the card share that one card); the CPU
-runs only when asked
-with ``--device cpu``, and without a card the default fails rather than
-falling back.  ``specs`` has no ``--markdown``.  The module entry points
+``train``, ``evaluate``, ``replay``, ``serve`` and ``swarm`` (where the
+workers take it too: local workers on the card share that one card);
+the CPU runs only when asked with ``--device cpu``, and without a card
+the default fails rather than falling back.  ``specs`` has no
+``--markdown``.  The module entry points
 ``repro_torch.launch.train`` and ``.evaluate`` are thin shims that
 forward here.
 """
@@ -240,6 +244,85 @@ def _cmd_swarm(ns):
     return summary
 
 
+def _cmd_serve(ns):
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs, resolve_device
+    from repro_torch import serving as serving_mod
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+
+    spec = build_spec(ns)
+    cfg = api.validate(spec)
+    engine_mode = ns.engine
+    if engine_mode == "auto":
+        engine_mode = "paged" if lm.supports_paged(cfg) else "lockstep"
+    if engine_mode == "paged" and not lm.supports_paged(cfg):
+        raise SystemExit(
+            f"{spec.model.arch} has non-attn mixers or a stub frontend; "
+            "the paged engine does not cover it — use --engine lockstep")
+    dev = resolve_device(ns.device)
+    gen = torch.Generator(device=dev).manual_seed(spec.run.seed)
+    params = lm.init_params(cfg, gen, dev)
+    rng = np.random.default_rng(spec.run.seed)
+    tokens = rng.integers(0, cfg.vocab, (ns.batch, ns.prompt_len))
+
+    if engine_mode == "paged":
+        sess = obs.session(spec.telemetry)
+        engine = serving_mod.Engine(cfg, params, spec.serving, obs=sess,
+                                    device=dev)
+        reqs = [serving_mod.Request(rid=i, tokens=row.tolist(),
+                                    max_new_tokens=ns.gen,
+                                    seed=spec.run.seed + i)
+                for i, row in enumerate(tokens)]
+        t0 = time.perf_counter()
+        with sess.profile():
+            results = engine.run(reqs)
+        dt = time.perf_counter() - t0
+        sess.close()
+        if sess.enabled and not spec.telemetry.prometheus:
+            print(engine.metrics_text())
+        out = [r.tokens for r in sorted(results, key=lambda r: r.rid)]
+        print(f"arch={cfg.name} engine=paged device={dev} lanes="
+              f"{spec.serving.max_lanes} batch={ns.batch} "
+              f"prompt={ns.prompt_len} gen={ns.gen}: {dt:.2f}s "
+              f"({ns.batch * ns.gen / dt:.1f} tok/s; "
+              f"{engine.n_prefill_calls} prefill calls, "
+              f"{engine.n_decode_steps} decode steps, "
+              f"{engine.n_compiles()} compiles)")
+        sched = engine.sched
+        if spec.serving.prefix_cache or sched.preemptions:
+            print(f"sharing: page hit rate {sched.page_hit_rate:.2f} "
+                  f"({sched.prefix_hits}/{sched.prefix_lookups} pages), "
+                  f"{sched.cow_copies} COW copies, "
+                  f"{sched.trie_evictions} trie evictions, "
+                  f"{sched.preemptions} preemptions")
+        print("sample:", out[0][:12])
+        return {"spec": api.to_dict(spec), "seconds": dt, "tokens": out,
+                "engine": {"mode": "paged",
+                           "prefill_calls": engine.n_prefill_calls,
+                           "decode_steps": engine.n_decode_steps,
+                           "compiles": engine.n_compiles(),
+                           "page_hit_rate": sched.page_hit_rate,
+                           "cow_copies": sched.cow_copies,
+                           "preemptions": sched.preemptions}}
+
+    toks = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    out = serve_mod.generate(cfg, params, toks, ns.gen,
+                             max_seq=ns.prompt_len + ns.gen + 1).tolist()
+    dt = time.perf_counter() - t0
+    print(f"arch={cfg.name} engine=lockstep device={dev} batch={ns.batch} "
+          f"prompt={ns.prompt_len} gen={ns.gen}: {dt:.2f}s "
+          f"({ns.batch * ns.gen / dt:.1f} tok/s)")
+    print("sample:", out[0][:12])
+    return {"spec": api.to_dict(spec), "seconds": dt, "tokens": out,
+            "engine": {"mode": "lockstep"}}
+
+
 def _cmd_specs(ns):
     os.makedirs(ns.out, exist_ok=True)
     written = {}
@@ -286,6 +369,17 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
             ap.add_argument("--out", default=None,
                             help="also write the markdown here (default: "
                                  "<run_dir>/report.md only)")
+    elif cmd == "serve":
+        ap.add_argument("--batch", type=int, default=4,
+                        help="number of synthetic requests")
+        ap.add_argument("--prompt-len", type=int, default=32)
+        ap.add_argument("--gen", type=int, default=16,
+                        help="tokens generated per request")
+        ap.add_argument("--engine", default="auto",
+                        choices=["auto", "paged", "lockstep"],
+                        help="auto: continuous-batching engine when the "
+                             "arch supports it (attn mixers), else the "
+                             "lockstep loop")
     elif cmd == "swarm":
         ap.add_argument("--attach", default=None, metavar="HOST:PORT",
                         help="join an existing swarm as a worker instead "
@@ -302,7 +396,8 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
 
 COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate,
             "specs": _cmd_specs, "report": _cmd_report,
-            "replay": _cmd_replay, "swarm": _cmd_swarm}
+            "replay": _cmd_replay, "swarm": _cmd_swarm,
+            "serve": _cmd_serve}
 
 
 def build_parser() -> argparse.ArgumentParser:

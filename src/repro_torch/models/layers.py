@@ -1,12 +1,19 @@
 """Transformer layers of the OPT stack (counterpart of
 ``repro/models/layers.py``): norms, flash attention, the attention block
-in train mode and the ReLU FFN.
+in its four modes (train, and the serving modes prefill, decode and
+paged), decode and paged attention, and the ReLU FFN.
 
 A block's parameters arrive as one layer's slice of the stacked leaves.
 Activations are (B, S, D) in the model dtype.  ``pc``
 (``fused.LayerPerturb``) switches every weight read to its virtually
 perturbed view; None is the plain path, where ``a @ w`` is PyTorch's
 matmul (the reference leaves these products to XLA too).
+
+The serving modes write their K/V into caches in place: the lockstep
+cache (R, B, Smax, KV, dh) and the paged arena (R, n_pages, page_size,
+KV, dh) are the reference's layouts, one layer's slice at a time.
+Decode and paged attention are plain PyTorch, as the reference's are
+``einsum``s outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 from repro_torch.kernels import flash_attn as kflash
 
 F32 = torch.float32
+NEG_INF = -1e30
 
 
 # ----------------------------------------------------------------- norms
@@ -97,30 +105,118 @@ def _mm(pc):
     return (lambda a, w, name: a @ w) if pc is None else pc.matmul
 
 
-def attn_fwd(cfg, p, x, *, pc=None):
-    """Causal self-attention block in train mode (learned positions are
-    added by the caller; OPT has no rope).  Prefix tuning's ``pk``/``pv``
-    (P, KV, dh) leaves, when present, are P always-visible key/value
-    positions ahead of the sequence (K2 at ``k_offset = -P``)."""
+def _attend(q, k, v, valid):
+    """Softmax attention of q (B,C,KV,G,dh) over k/v (B,S,KV,dh) where
+    ``valid`` (B|1, C|1, S) holds; scores and P·V accumulate in float32,
+    P rounded to q's type first, as the reference's ``einsum``s with
+    ``preferred_element_type=F32``."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(F32),
+                     k.to(F32)) * (q.shape[-1] ** -0.5)
+    s = torch.where(valid[:, None, None], s,
+                    torch.tensor(NEG_INF, dtype=F32, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype).to(F32),
+                       v.to(F32))
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cur_len):
+    """Single-token attention over a (possibly partially filled) cache.
+
+    q: (B,1,KV,G,dh); caches: (B,Smax,KV,dh); cur_len — number of valid
+    cache entries *including* the current token: an int (the lockstep
+    path, every lane at the same depth) or a (B,) tensor (per-lane
+    depths).
+    """
+    cur = torch.as_tensor(cur_len, device=q.device).reshape(-1, 1, 1)
+    slots = torch.arange(k_cache.shape[1], device=q.device)
+    return _attend(q, k_cache, v_cache, slots < cur)
+
+
+def paged_attention(q, k, v, q_positions):
+    """Causal attention over page-gathered caches (DESIGN.md §12).
+
+    q: (B,C,KV,G,dh) — C query tokens per lane (C==1 for a decode step,
+    C==prefill_chunk for a prefill call); k/v: (B,Smax,KV,dh), the lane's
+    page table gathered back into position order, so buffer index s IS
+    absolute position s; q_positions: (B,C) absolute position per query.
+
+    The single causal test ``s <= q_position`` doubles as the validity
+    mask: pages are written front to back, so every position <= the
+    query's is live and everything beyond it is trash-page content,
+    which a probability of exactly 0 leaves out (the arena starts as
+    zeros, so that content is always finite).  Dense, as the
+    reference's.
+    """
+    slots = torch.arange(k.shape[1], device=q.device)
+    return _attend(q, k, v, slots <= q_positions[:, :, None])
+
+
+def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
+             pages=None):
+    """Causal self-attention block (learned positions are added by the
+    caller; OPT has no rope).  Returns the block's output.
+
+    mode: ``train`` (no cache) | ``prefill`` (K2 over the prompt; its K/V
+    written to ``cache["k"/"v"]`` (B, Smax, KV, dh) at [0, S), the rest
+    left as the zeros it was made with) | ``decode`` (S == 1: K/V written
+    at ``pos``, then :func:`decode_attention` over ``pos + 1`` entries) |
+    ``paged`` (the serving engine's bucketed call: ``cache`` holds this
+    layer's arena {"k"/"v": (n_pages, page_size, KV, dh)}, ``pages`` the
+    (B, max_pages) page table (page 0 = trash), ``pos`` a (B,) tensor of
+    per-lane start positions; the new K/V land at page
+    ``pages[b, pos_b // psz]`` slot ``pos_b % psz``, then each lane's
+    pages are gathered back into position order for
+    :func:`paged_attention`).  Every cache write is in place.
+
+    Prefix tuning's ``pk``/``pv`` (P, KV, dh) leaves, when present, are
+    P always-visible key/value positions ahead of the sequence (K2 at
+    ``k_offset = -P``), in train mode only.
+    """
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if pc is not None and "pk" in p:
         raise NotImplementedError(
             "virtual perturbation does not cover prefix-KV leaves")
+    if mode != "train" and "pk" in p:
+        raise NotImplementedError(
+            f"mode={mode!r} serves no prefix-KV leaves")
     mm = _mm(pc)
     h = (apply_norm(cfg, p["norm"], x) if pc is None
          else pc.apply_norm(cfg, p["norm"], x, "norm"))
     q = mm(h, p["wq"], "wq").reshape(B, S, KV, H // KV, dh)
     k = mm(h, p["wk"], "wk").reshape(B, S, KV, dh)
     v = mm(h, p["wv"], "wv").reshape(B, S, KV, dh)
-    k_offset = 0
-    if "pk" in p:
-        P = p["pk"].shape[0]
-        k = torch.cat([p["pk"].to(k.dtype).expand(B, P, KV, dh), k], dim=1)
-        v = torch.cat([p["pv"].to(v.dtype).expand(B, P, KV, dh), v], dim=1)
-        k_offset = -P
-    o = flash_attention(q, k, v, causal=True, k_offset=k_offset,
-                        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    if mode == "paged":
+        Pn, psz = cache["k"].shape[0], cache["k"].shape[1]
+        positions = pos[:, None] + torch.arange(S, device=x.device)[None]
+        page = torch.gather(pages, 1, torch.div(positions, psz,
+                                                rounding_mode="floor"))
+        flat = (page * psz + positions % psz).reshape(-1)
+        k_arena = cache["k"].view(Pn * psz, KV, dh)
+        v_arena = cache["v"].view(Pn * psz, KV, dh)
+        k_arena.index_copy_(0, flat, k.reshape(B * S, KV, dh))
+        v_arena.index_copy_(0, flat, v.reshape(B * S, KV, dh))
+        kg = cache["k"][pages].reshape(B, -1, KV, dh)  # (B, max_pg*psz, ..)
+        vg = cache["v"][pages].reshape(B, -1, KV, dh)
+        o = paged_attention(q, kg, vg, positions)
+    elif mode == "decode":
+        cache["k"][:, pos:pos + 1] = k
+        cache["v"][:, pos:pos + 1] = v
+        o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    else:
+        k_offset = 0
+        if "pk" in p:
+            P = p["pk"].shape[0]
+            k = torch.cat([p["pk"].to(k.dtype).expand(B, P, KV, dh), k], 1)
+            v = torch.cat([p["pv"].to(v.dtype).expand(B, P, KV, dh), v], 1)
+            k_offset = -P
+        o = flash_attention(q, k, v, causal=True, q_offset=pos,
+                            k_offset=k_offset, q_chunk=cfg.attn_q_chunk,
+                            k_chunk=cfg.attn_k_chunk)
+        if mode == "prefill":
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
     return mm(o.reshape(B, S, H * dh), p["wo"], "wo").to(x.dtype)
 
 

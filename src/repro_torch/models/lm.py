@@ -1,5 +1,5 @@
-"""Decoder-only LM: parameters, train-mode forward and loss
-(counterpart of ``repro/models/lm.py``; serving waits for a later slice).
+"""Decoder-only LM: parameters, forward, loss, and the serving entry
+points (counterpart of ``repro/models/lm.py``).
 
 Parameters live in an ``nn.Module`` tree shaped like the reference's
 dict tree::
@@ -13,6 +13,13 @@ axis 0, so ``named_parameters()`` with ``.`` read as ``/`` gives the
 reference's leaf paths, the keys of the z streams.  The forward walks the
 layers in a Python loop (the reference's ``lax.scan``), slicing each
 stacked leaf without a copy.
+
+Serving (DESIGN.md §12): ``prefill``/``serve_step`` run the lockstep
+path over a cache ``init_cache`` makes, (R, B, Smax, KV, dh) per
+``s{i}/b{j}`` leaf; ``paged_step`` runs one bucketed call of the
+continuous-batching engine over the arena ``init_paged_cache`` makes,
+(R, n_pages, page_size, KV, dh) per leaf.  Both layouts are the
+reference's, and both are written in place.
 
 The loss is a chunked cross-entropy over sequence chunks, so the
 (B, S, V) logits never exist at once.  Under a paired ctx it runs once
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.core import zo
 from repro_torch.fused import ref as fused_ref
 from repro_torch.models import layers
@@ -229,24 +237,39 @@ def zo_group_fn(path: str) -> Optional[str]:
 
 
 # --------------------------------------------------------------- forward
-def _run_block(cfg, p, x, pc=None):
+def _run_block(cfg, p, x, pc=None, **mix_kw):
     x = x + layers.attn_fwd(cfg, p["mix"], x,
-                            pc=None if pc is None else pc.child("mix"))
+                            pc=None if pc is None else pc.child("mix"),
+                            **mix_kw)
     return x + layers.ffn_fwd(cfg, p["ffn"], x,
                               pc=None if pc is None else pc.child("ffn"))
 
 
-def forward(cfg: ModelConfig, params: LM, tokens, perturb=None):
-    """tokens (B, S) -> hidden (B, S, D), train mode.
+def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
+            mode="train", caches=None, pos=0, pages=None):
+    """tokens (B, S) -> hidden (B, S, D) in train mode; (hidden,
+    caches) in a serving mode.
 
-    ``perturb`` (fused.PerturbCtx) runs the forward against the virtually
-    perturbed weights theta + s*eps*z; a paired ctx folds its P probes
-    into the batch, p-major, and returns (P·B, S, D)."""
+    ``perturb`` (fused.PerturbCtx, train mode only) runs the forward
+    against the virtually perturbed weights theta + s*eps*z; a paired ctx
+    folds its P probes into the batch, p-major, and returns (P·B, S, D).
+
+    mode: ``prefill`` (fill ``caches``, an ``init_cache`` tree, from
+    position 0) | ``decode`` (S == 1 at position ``pos``, an int) |
+    ``paged`` (``caches`` is the ``init_paged_cache`` arena, ``pages``
+    the (B, max_pages) page table and ``pos`` a (B,) tensor of per-lane
+    start positions, each lane reading its own learned positions).  The
+    caches are written in place and returned, per stage and block."""
+    if mode != "train" and perturb is not None:
+        raise NotImplementedError(f"mode={mode!r} takes no perturbation")
     P = 0 if (perturb is None or perturb.pair is None) else perturb.pair.n
     tok, pos_w = params["embed"]["tok"], params["embed"]["pos"]
     S = tokens.shape[1]
-    if perturb is None:
-        x = tok[tokens] + pos_w[:S]
+    if mode == "paged":
+        ppos = pos[:, None] + torch.arange(S, device=tokens.device)[None]
+        x = tok[tokens] + pos_w[ppos]
+    elif perturb is None:
+        x = tok[tokens] + pos_w[pos:pos + S]
     else:
         tseed = fused_ref.layer_seed(perturb.seed, "embed/tok")
         pseed = fused_ref.layer_seed(perturb.seed, "embed/pos")
@@ -264,9 +287,18 @@ def forward(cfg: ModelConfig, params: LM, tokens, perturb=None):
                    for bj in range(len(st.pattern))])
         for l in range(st.repeat):
             for bj in range(len(st.pattern)):
-                pc = (None if perturb is None else perturb.block(
-                    f"stages/s{si}/b{bj}", l, pmasks[bj][l]))
-                x = _run_block(cfg, sp[f"b{bj}"].layer(l), x, pc)
+                bp = sp[f"b{bj}"].layer(l)
+                if mode == "train":
+                    pc = (None if perturb is None else perturb.block(
+                        f"stages/s{si}/b{bj}", l, pmasks[bj][l]))
+                    x = _run_block(cfg, bp, x, pc)
+                else:
+                    bc = caches[f"s{si}"][f"b{bj}"]
+                    x = _run_block(cfg, bp, x, mode=mode, pos=pos,
+                                   cache={"k": bc["k"][l], "v": bc["v"][l]},
+                                   pages=pages)
+    if mode != "train":
+        return layers.apply_norm(cfg, params["final_norm"], x), caches
     if perturb is None:
         return layers.apply_norm(cfg, params["final_norm"], x)
     return perturb.leaf("final_norm").apply_norm(cfg, params["final_norm"],
@@ -331,3 +363,91 @@ def lm_loss(cfg: ModelConfig, params: LM, batch, perturb=None, *,
         hidden = forward(cfg, params, batch["tokens"], perturb=perturb)
         return chunked_ce(cfg, params, hidden, batch["labels"],
                           batch["loss_mask"], perturb=perturb)
+
+
+# ---------------------------------------------------------------- serving
+def _cache_tree(cfg: ModelConfig, shape_of, dtype, device):
+    dt = getattr(torch, dtype or cfg.dtype)
+    dev = resolve_device(device)
+    caches: Dict = {}
+    for si, st in enumerate(cfg.stages):
+        caches[f"s{si}"] = {
+            f"b{bj}": {"k": torch.zeros(shape_of(st.repeat), dtype=dt,
+                                        device=dev),
+                       "v": torch.zeros(shape_of(st.repeat), dtype=dt,
+                                        device=dev)}
+            for bj, _ in enumerate(st.pattern)}
+    return caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None):
+    """An empty lockstep cache for ``forward(mode='prefill'|'decode')``:
+    {"k", "v"} zeros of (R, batch, max_seq, KV, dh) per stage-block, on
+    ``device`` (None: the card)."""
+    _check_supported(cfg)
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    return _cache_tree(cfg, lambda R: (R, batch, max_seq, KV, dh), dtype,
+                       device)
+
+
+def serve_step(cfg: ModelConfig, params, caches, token, pos: int):
+    """One decode step.  token: (B, 1); pos: the cache's current length
+    (an int).  Returns (logits (B, V) f32, caches), the caches advanced
+    in place."""
+    with torch.no_grad():
+        hidden, caches = forward(cfg, params, token, mode="decode",
+                                 caches=caches, pos=pos)
+        return logits_fn(cfg, params, hidden[:, -1]), caches
+
+
+def prefill(cfg: ModelConfig, params, tokens, max_seq: int):
+    """Run the prompt (B, S) through the model on its device, returning
+    (logits of the last position (B, V) f32, caches of ``max_seq``
+    slots)."""
+    with torch.no_grad():
+        caches = init_cache(cfg, tokens.shape[0], max_seq,
+                            device=tokens.device)
+        hidden, caches = forward(cfg, params, tokens, mode="prefill",
+                                 caches=caches, pos=0)
+        return logits_fn(cfg, params, hidden[:, -1]), caches
+
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """True when every mixer is attn and the model reads tokens — the
+    block family the paged serving engine covers (DESIGN.md §12)."""
+    return (cfg.frontend == "none"
+            and all(b.kind == "attn" for s in cfg.stages for b in s.pattern))
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     dtype=None, device=None):
+    """The serving engine's KV arena: zeros of (R, n_pages, page_size,
+    KV, dh) per stage-block leaf, shared by every request via per-lane
+    page tables, on ``device`` (None: the card).  Page 0 is the trash
+    page: inactive lanes write there and table padding points there,
+    and the zeros keep what masked attention reads from it finite."""
+    _check_supported(cfg)
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    return _cache_tree(cfg, lambda R: (R, n_pages, page_size, KV, dh),
+                       dtype, device)
+
+
+def paged_step(cfg: ModelConfig, params, arena, tokens, pages, pos, sel):
+    """One bucketed serving call — a prefill chunk or a batched decode
+    step are the same computation at different (B, C) buckets
+    (DESIGN.md §12).
+
+    tokens: (B, C) — C == 1 for a decode step, C == prefill_chunk for a
+    prefill call; pages: (B, max_pages) int64 page-table rows (entry 0 =
+    trash page); pos: (B,) int64 absolute position of ``tokens[:, 0]``;
+    sel: (B,) int64 chunk index whose logits each lane returns (the last
+    valid prompt token for a final prefill chunk, 0 for decode).  Returns
+    (logits (B, V) f32, arena), the arena written in place.
+    """
+    with torch.no_grad():
+        hidden, arena = forward(cfg, params, tokens, mode="paged",
+                                caches=arena, pos=pos, pages=pages)
+        h_sel = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                       sel]
+        return logits_fn(cfg, params, h_sel), arena

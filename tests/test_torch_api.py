@@ -113,7 +113,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "launch/replay.py", "launch/cli.py", "swarm/__init__.py",
                 "swarm/commit.py", "swarm/proto.py", "swarm/chaos.py",
                 "swarm/shardstep.py", "swarm/coordinator.py",
-                "swarm/worker.py", "swarm/driver.py"):
+                "swarm/worker.py", "swarm/driver.py", "serving/__init__.py",
+                "serving/pool.py", "serving/prefix.py",
+                "serving/scheduler.py", "serving/sampling.py",
+                "serving/engine.py", "launch/serve.py"):
         assert mod in scanned, mod
 
 

@@ -8,7 +8,10 @@ Tolerances: K1 masked rows bit-equal and active rows within 1 bf16 ulp
 (z differs from the plain version by a few float32 ulp); K2-K4 within
 one bf16 rounding step of the output (2^-7 relative, plus 2^-8 of the
 largest magnitude near zero); K3 at any P bit-equal to P K4 calls; K2's
-backward within two steps (stated at its test).
+backward within two steps (stated at its test).  The serving engine on
+the card: greedy tokens equal the lockstep's, or differ first where the
+lockstep's top-2 gap is below the two paths' max |delta logits| (a
+near-tie); sharing on equal to sharing off bit for bit.
 """
 import numpy as np
 import pytest
@@ -321,6 +324,87 @@ def test_peft_forward_on_the_card(dev, kind):
     _close(got.cpu(), want, steps=4)
 
 
+@pytest.mark.parametrize("B,S,KV,dh", [(1, 700, 8, 128), (4, 1024, 4, 128),
+                                       (2, 257, 4, 64)])
+def test_flash_kernel_at_prefill_shapes(dev, B, S, KV, dh):
+    """K2 as the lockstep prefill calls it: Sq = Sk = the prompt, q_offset
+    0, ragged last tiles."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((B, S, KV, 1, dh), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, KV, dh), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, KV, dh), generator=g, device=dev).bfloat16()
+    kfa.counter.launches = 0
+    got = kfa.flash_attention(q, k, v, causal=True, q_offset=0)
+    assert kfa.counter.launches == 1
+    _close(got, kfa.flash_attention_plain(q, k, v, causal=True, q_chunk=512,
+                                          k_chunk=2048))
+
+
+def _lockstep_logits(cfg, p, prompt, steps, dev):
+    """The lockstep path's logits (lm.prefill, then lm.serve_step, the
+    calls ``generate`` makes), greedy, at batch 1."""
+    toks = torch.tensor([prompt], device=dev)
+    logits, caches = lm.prefill(cfg, p, toks, max_seq=len(prompt) + steps)
+    out = [logits[0].float()]
+    for i in range(steps - 1):
+        tok = torch.argmax(logits, -1)[:, None]
+        logits, caches = lm.serve_step(cfg, p, caches, tok, len(prompt) + i)
+        out.append(logits[0].float())
+    return out
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_engine_greedy_equals_lockstep_on_card(dev, prefix_cache):
+    """The engine at a smoke size in bf16 (2 layers, d_model 128: heads of
+    32, which K2 takes; the smoke variant's 16 it does not): each
+    request's greedy tokens equal the lockstep's, or their first
+    difference is a near-tie.  With prefix sharing the copy-on-write page
+    copy runs on the card and the tokens equal sharing off's."""
+    from repro_torch import api, serving
+    from repro_torch.launch import serve
+    cfg = opt.opt_tiny(layers=2, d_model=128, vocab=512).with_(
+        dtype="bfloat16")
+    p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(5), dev)
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, 512, 12).tolist()          # 3 pages
+    prompts = [system + rng.integers(0, 512, int(rng.integers(1, 9)))
+               .tolist() for _ in range(5)]
+    gens = [int(rng.integers(2, 7)) for _ in range(5)]
+
+    def run(share):
+        eng = serving.Engine(cfg, p, api.Serving(
+            page_size=4, n_pages=32, max_lanes=3, prefill_chunk=8,
+            max_seq=64, prefix_cache=share), device=dev)
+        seen, sample = {}, eng._sample
+
+        def tapped(logits, seeds, positions):
+            for i, (s, q) in enumerate(zip(seeds.tolist(),
+                                           positions.tolist())):
+                seen[(s, q)] = logits[i].float()
+            return sample(logits, seeds, positions)
+        eng._sample = tapped
+        out = eng.run([serving.Request(rid=i, tokens=t, max_new_tokens=g,
+                                       seed=1000 + i)
+                       for i, (t, g) in enumerate(zip(prompts, gens))])
+        assert eng.n_compiles() == 2
+        return {r.rid: r.tokens for r in out}, seen, eng
+
+    got, seen, eng = run(prefix_cache)
+    if prefix_cache:
+        assert eng.sched.cow_copies > 0
+        assert got == run(False)[0]
+    for i, (prompt, n) in enumerate(zip(prompts, gens)):
+        want = serve.generate(cfg, p, torch.tensor([prompt], device=dev), n,
+                              max_seq=64)[0].tolist()
+        first = next((t for t in range(n) if got[i][t] != want[t]), None)
+        if first is None:
+            continue
+        lsl = _lockstep_logits(cfg, p, prompt, first + 1, dev)[first]
+        delta = (seen[(1000 + i, len(prompt) + first)] - lsl).abs().max()
+        top2 = lsl.topk(2).values
+        assert top2[0] - top2[1] < delta, (i, first, delta.item())
+
+
 def test_port_loads_no_jax_or_reference():
     """Importing every port module (and chip_smoke.py), the swarm's
     worker entry among them, loads no module of jax or of the JAX
@@ -341,6 +425,7 @@ def test_port_loads_no_jax_or_reference():
         "import repro_torch.swarm, repro_torch.swarm.shardstep\n"
         "import repro_torch.swarm.coordinator, repro_torch.swarm.worker\n"
         "import repro_torch.swarm.driver\n"
+        "import repro_torch.serving, repro_torch.launch.serve\n"
         "from repro_torch.launch import cli\n"
         "cli.build_parser().parse_args(['swarm', '--attach', 'h:1'])\n"
         "import chip_smoke\n"
