@@ -105,15 +105,41 @@ when it fails:
              a near-tie); the plain serving operations' times; a
              ``torch.profiler`` profile of one steady decode step and the
              idle share over 10.
-14. fo     — K2's backward against autograd through its plain version at
+14. zoo    — the dense model zoo, once this process holds no OPT-13B
+             weights.  Each kernel against its plain version at
+             Qwen3-14B's shapes (the ``zoo_shapes`` rows: K2 at G = 5, 2
+             and 7 with 8 KV heads, SDPA with ``enable_gqa`` beside; K3
+             at wq/wo, wk/wv, wg/wu and wd; K4 on the untied (5120,
+             151936) head read as stored and on internvl2-2b's (2048,
+             92553) head, which must load by per-thread loads; K1 on
+             head/w as one 778 M-element row).  Then ``lezo-opt13b``
+             with ``model.arch=qwen3-14b`` at full width and depth:
+             4 steps (launches as ``expected_launches`` reckons: K3 7 a
+             layer, K4 2, K2 40 a step, K1 one a leaf; every K3/K4 launch
+             by TMA), the virtual pair against the materialized probes
+             with ``check``'s gates, 20 steady steps as ``trace`` times
+             them (telemetry off) with the idle share, a profiled step;
+             serving it: lockstep ``generate`` at (4, 1024) + 32 (K2 40
+             launches at (4, 1024, 8, 5, 128), held against its plain
+             version), the engine over 8 requests (4 sharing a 512-token
+             prefix; the last 4 arrive after 8 steps, so 2 of them can
+             find the prefix registered) with sharing off and
+             ``prefix_cache`` bit-equal, pages shared, 2
+             requests against ``generate`` at batch 1 (``serve``'s gate).
+             Then the other five dense configs at full width cut to 2
+             layers (2 steps each; musicgen-large and internvl2-2b on
+             stub embeddings), and deepseek-coder-33b at full width and
+             depth (2 steps, peak memory): finite losses and launches as
+             reckoned.
+15. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-15. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+16. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
-16. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+17. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
              this process holds no 13B weights.  First K1-K4 against
              their plain versions at the shapes one worker's loss shard
              gives them (the ``swarm_shapes`` rows of the kernels line).
@@ -894,13 +920,15 @@ def phase_profile(spec, cfg, params, tag="profile"):
                     f"x {key[:70]}")
 
 
-def expected_launches(spec, params, steps):
-    """Launches by kernel that ``steps`` steps of ``spec`` must make,
-    from ``costs.step_counts`` and, for stacked one_sided probes, K3's
-    probe groups of each layer's active probes (``fmm.probe_groups``).
-    ZO modes here run virtual and paired, momentum materialized.  A swarm
-    spec's sharded step runs the paired probe forward once a loss shard
-    and one commit sweep."""
+def expected_launches(spec, params, steps, cfg=None):
+    """Launches by kernel that ``steps`` steps of ``spec`` must make on
+    ``params`` (of ``cfg``, by default the spec's model), from
+    ``costs.step_counts``, the model's weight matmuls a layer
+    (``fmm.model_matmuls``: 6, or 7 with SwiGLU) and, for stacked
+    one_sided probes, K3's probe groups of each layer's active probes
+    (``fmm.probe_groups``).  ZO modes here run virtual and paired,
+    momentum materialized.  A swarm spec's sharded step runs the paired
+    probe forward once a loss shard and one commit sweep."""
     from repro_torch import api, estimators
     from repro_torch.api.validate import swarm_active, swarm_shards
     from repro_torch.core import rng, zo
@@ -908,7 +936,9 @@ def expected_launches(spec, params, steps):
     from repro_torch.models import lm
 
     d = api.derive(spec)
-    e, L = d.est_cfg, d.model_cfg.num_layers
+    cfg = cfg or d.model_cfg
+    e, L = d.est_cfg, cfg.num_layers
+    mm = len(fmm.model_matmuls(cfg)[0])
     zspec = zo.build_spec(params, lm.zo_group_fn)
     leaves = len(zspec.paths)
     base = rng.fold_py(spec.run.seed, 0xC0FFEE)
@@ -931,7 +961,7 @@ def expected_launches(spec, params, steps):
         if inner in ("two_point", "averaged"):     # one paired forward each
             pairs = (1 if inner == "two_point" else e.q) * shards
             n["flash_attention"] += L * pairs
-            n["pmatmul_stack"] += 6 * L * pairs
+            n["pmatmul_stack"] += mm * L * pairs
             n["pmatmul"] += 2 * pairs
             continue
         seeds = estimators.direction_seeds(rng.fold_py(base, t), e.q)
@@ -942,12 +972,13 @@ def expected_launches(spec, params, steps):
         for c0 in range(0, e.q, chunk):
             for layer in range(L):
                 act = [m[layer] for m in masks[c0:c0 + chunk]]
-                n["pmatmul_stack"] += 6 * (
+                n["pmatmul_stack"] += mm * (
                     1 if len(act) <= 2 else len(fmm.probe_groups(act)))
     return n
 
 
-def run_counted(tag, spec, params=None, trainer=None, val_data=None):
+def run_counted(tag, spec, params=None, trainer=None, val_data=None,
+                train_data=None):
     """One training run (``api.run``, or ``trainer.train()``) with the
     launch counters zeroed just before and read just after; logs and
     returns (history, launches, peak GiB)."""
@@ -960,8 +991,10 @@ def run_counted(tag, spec, params=None, trainer=None, val_data=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    hist = (trainer.train(val_data=val_data) if trainer is not None
-            else api.run(spec, params=params, val_data=val_data)["history"])
+    hist = (trainer.train(train_data=train_data, val_data=val_data)
+            if trainer is not None
+            else api.run(spec, params=params, train_data=train_data,
+                         val_data=val_data)["history"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {n: c.launches for n, c in counters.items()}
@@ -1208,15 +1241,16 @@ SERVE_LOGIT_STEPS = 16
 SEED_BASE = 1000                     # request seeds; inactive lanes are 0
 
 
-def serve_requests(vocab, seed=0):
-    """(rid, tokens) of the serve phase's requests: even rids share a
-    512-token prefix and run to 513-700 tokens, odd rids 64-700."""
+def serve_requests(vocab, seed=0, n=SERVE_REQUESTS, shared=SERVE_SHARED):
+    """(rid, tokens) of ``n`` requests: the first ``shared`` even rids
+    share a 512-token prefix and run to 513-700 tokens, the others
+    64-700."""
     import numpy as np
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, vocab, SERVE_PREFIX).tolist()
     reqs = []
-    for rid in range(SERVE_REQUESTS):
-        if rid % 2 == 0 and rid // 2 < SERVE_SHARED:
+    for rid in range(n):
+        if rid % 2 == 0 and rid // 2 < shared:
             n = int(rng.integers(SERVE_PREFIX + 1, 701))
             toks = prefix + rng.integers(0, vocab,
                                          n - SERVE_PREFIX).tolist()
@@ -1359,6 +1393,124 @@ def serve_plain_ops(cfg, spec):
     return out
 
 
+def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check):
+    """Requests ``check`` of an engine run (tokens ``base``, sampler rows
+    ``tapped``) against ``generate`` at batch 1: first-token logits within
+    ``SERVE_LOGIT_STEPS`` bf16 steps, and the streams equal or parting
+    at a near-tie (the lockstep's top-2 gap below max |dlogits|)."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for rid in check:
+        prompt = reqs[rid][1]
+        n = spec.serving.max_new_tokens
+        ls = serve_mod.generate(cfg, params, torch.tensor(
+            [prompt], device="cuda"), n, max_seq=len(prompt) + n + 1)[0]
+        ls = ls.tolist()
+        ls_logits = lockstep_logits(cfg, params, prompt, 1)[0]
+        en_logits = tapped[(SEED_BASE + rid, len(prompt))]
+        steps = bf16_steps(en_logits, ls_logits)
+        worst = max(worst, steps)
+        close(en_logits, ls_logits, f"{tag}: rid {rid} first-token logits, "
+              "engine against lockstep", steps=SERVE_LOGIT_STEPS)
+        first = next((t for t in range(n) if ls[t] != base[rid][t]), None)
+        msg = (f"[{tag}] rid {rid} (prompt {len(prompt)}): first-token "
+               f"logits {steps:.2f} bf16 steps apart (max|d| "
+               f"{(en_logits - ls_logits).abs().max().item():.3e}); ")
+        if first is None:
+            log(msg + f"all {n} tokens equal")
+            continue
+        lsl = lockstep_logits(cfg, params, prompt, first + 1)[first]
+        enl = tapped[(SEED_BASE + rid, len(prompt) + first)]
+        gap = (lsl.topk(2).values[0] - lsl.topk(2).values[1]).item()
+        delta = (enl - lsl).abs().max().item()
+        log(msg + f"tokens differ first at step {first}: max|dlogits| "
+            f"{delta:.4e}, lockstep top-2 gap {gap:.4e}")
+        if not gap < delta:
+            raise SystemExit(f"{tag}: rid {rid} engine and lockstep differ "
+                             f"at step {first} without a near-tie (gap "
+                             f"{gap:.4e} >= max|dlogits| {delta:.4e})")
+    log(f"[{tag}] engine against lockstep: worst first-token gap "
+        f"{worst:.2f} bf16 steps (gate {SERVE_LOGIT_STEPS})")
+    return worst
+
+
+def profile_one(tag, fn, what):
+    """``fn()`` once under ``torch.profiler``: its wall and device busy
+    ms, the device kernels by time and the aten ops that launched them.
+    Returns (wall, busy) seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t
+    dev_us, op_us = {}, {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            dev_us[e.key] = (e.self_cuda_time_total if us is None else us,
+                             e.count)
+        elif e.key.startswith("aten::"):     # the ops that launched them
+            us = getattr(e, "device_time_total", None)
+            op_us[e.key] = (e.cuda_time_total if us is None else us,
+                            e.count)
+    busy = sum(us for us, _ in dev_us.values()) / 1e6
+    log(f"[{tag}] profile of {what}: wall {one * 1e3:.2f} ms, device busy "
+        f"{busy * 1e3:.2f} ms, {sum(n for _, n in dev_us.values())} "
+        "kernels")
+    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[{tag}] {us / 1e3:9.3f} ms {n:6d} x  {key[:150]}")
+    for key, (us, n) in sorted(op_us.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[{tag}] op {us / 1e3:9.3f} ms {n:6d} x  {key} (device time "
+            "of its kernels, nested ops included)")
+    if busy == 0:
+        raise SystemExit(f"{tag}: the profile of {what} holds no device "
+                         "time")
+    return one, busy
+
+
+def decode_profile(tag, eng, reqs, spec):
+    """A steady decode step of ``eng``: every lane decoding (64-token
+    prompts of ``reqs``), no admission, no retirement; one step under
+    ``profile_one``, then the idle share over 10."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import serving
+    steady = [serving.Request(rid=100 + i, tokens=reqs[i][1][:64],
+                              max_new_tokens=48, seed=SEED_BASE + 100 + i)
+              for i in range(spec.serving.max_lanes)]
+    for r in steady:
+        eng.submit(r)
+    while eng.sched.prefilling() or eng.sched.queue:
+        eng.step()
+    for _ in range(2):
+        eng.step()                                        # warm
+    profile_one(tag, eng.step, f"one steady decode step "
+                f"({spec.serving.max_lanes} lanes)")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(10):
+            eng.step()
+        torch.cuda.synchronize()
+        wall10 = time.perf_counter() - t
+    busy = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if us is None else us) / 1e6
+    if busy == 0:
+        raise SystemExit(f"{tag}: the decode profile holds no device time")
+    log(f"[{tag}] 10 steady decode steps: wall {wall10:.3f} s "
+        f"({wall10 * 100:.2f} ms a step), device busy {busy:.3f} s, idle "
+        f"share {1 - busy / wall10:.3f}")
+
+
 def phase_serve(hold, cfg):
     """The serving path at OPT-13B full width and depth on the weights of
     the earlier phases (or from a seed).  Lockstep ``generate`` at batch
@@ -1479,58 +1631,7 @@ def phase_serve(hold, cfg):
     tapped = rows()
     eng._sample = sample
 
-    # a steady decode step: 8 lanes decoding, no admission, no retirement
-    steady = [serving.Request(rid=100 + i, tokens=reqs[i][1][:64],
-                              max_new_tokens=48, seed=SEED_BASE + 100 + i)
-              for i in range(spec.serving.max_lanes)]
-    for r in steady:
-        eng.submit(r)
-    while eng.sched.prefilling() or eng.sched.queue:
-        eng.step()
-    for _ in range(2):
-        eng.step()                                        # warm
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        one = time.perf_counter() - t
-    dev_us, op_us = {}, {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            dev_us[e.key] = (e.self_cuda_time_total if us is None else us,
-                             e.count)
-        elif e.key.startswith("aten::"):     # the ops that launched them
-            us = getattr(e, "device_time_total", None)
-            op_us[e.key] = (e.cuda_time_total if us is None else us,
-                            e.count)
-    busy1 = sum(us for us, _ in dev_us.values()) / 1e6
-    log(f"[serve] profile of one steady decode step (8 lanes): wall "
-        f"{one * 1e3:.2f} ms, device busy {busy1 * 1e3:.2f} ms")
-    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[serve] {us / 1e3:9.3f} ms {n:6d} x  {key[:150]}")
-    for key, (us, n) in sorted(op_us.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[serve] op {us / 1e3:9.3f} ms {n:6d} x  {key} (device time "
-            "of its kernels, nested ops included)")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(10):
-            eng.step()
-        torch.cuda.synchronize()
-        wall10 = time.perf_counter() - t
-    busy = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            busy += (e.self_cuda_time_total if us is None else us) / 1e6
-    if busy == 0 or busy1 == 0:
-        raise SystemExit("serve: the decode profile holds no device time")
-    log(f"[serve] 10 steady decode steps: wall {wall10:.3f} s "
-        f"({wall10 * 100:.2f} ms a step), device busy {busy:.3f} s, idle "
-        f"share {1 - busy / wall10:.3f}")
+    decode_profile("serve", eng, reqs, spec)
     eng.run([])
     sess.close()
     plain_ops = serve_plain_ops(cfg, spec)
@@ -1572,42 +1673,383 @@ def phase_serve(hold, cfg):
         del eng
 
     # engine against lockstep, 4 requests at batch 1
-    gc.collect()
-    torch.cuda.empty_cache()
-    worst = 0.0
-    for rid in check:
-        prompt = reqs[rid][1]
-        n = spec.serving.max_new_tokens
-        ls = serve_mod.generate(cfg, params, torch.tensor(
-            [prompt], device="cuda"), n, max_seq=len(prompt) + n + 1)[0]
-        ls = ls.tolist()
-        ls_logits = lockstep_logits(cfg, params, prompt, 1)[0]
-        en_logits = tapped[(SEED_BASE + rid, len(prompt))]
-        steps = bf16_steps(en_logits, ls_logits)
-        worst = max(worst, steps)
-        close(en_logits, ls_logits, f"serve: rid {rid} first-token logits, "
-              "engine against lockstep", steps=SERVE_LOGIT_STEPS)
-        first = next((t for t in range(n) if ls[t] != base[rid][t]), None)
-        msg = (f"[serve] rid {rid} (prompt {len(prompt)}): first-token "
-               f"logits {steps:.2f} bf16 steps apart (max|d| "
-               f"{(en_logits - ls_logits).abs().max().item():.3e}); ")
-        if first is None:
-            log(msg + f"all {n} tokens equal")
-            continue
-        lsl = lockstep_logits(cfg, params, prompt, first + 1)[first]
-        enl = tapped[(SEED_BASE + rid, len(prompt) + first)]
-        gap = (lsl.topk(2).values[0] - lsl.topk(2).values[1]).item()
-        delta = (enl - lsl).abs().max().item()
-        log(msg + f"tokens differ first at step {first}: max|dlogits| "
-            f"{delta:.4e}, lockstep top-2 gap {gap:.4e}")
-        if not gap < delta:
-            raise SystemExit(f"serve: rid {rid} engine and lockstep differ "
-                             f"at step {first} without a near-tie (gap "
-                             f"{gap:.4e} >= max|dlogits| {delta:.4e})")
-    log(f"[serve] engine against lockstep: worst first-token gap "
-        f"{worst:.2f} bf16 steps (gate {SERVE_LOGIT_STEPS})")
+    engine_vs_lockstep("serve", cfg, params, spec, reqs, base, tapped, check)
     k2_row["plain_ops"] = plain_ops
     return [k2_row]
+
+
+# The zoo phase: the dense model zoo (every attn + dense config) on the
+# card.  Qwen3-14B runs at full width and depth (GQA with G = 5, qk-norm,
+# rope, SwiGLU, an untied (5120, 151936) head); the other five at full
+# width, cut to ZOO_DEPTH layers; deepseek-coder-33b also at full depth.
+ZOO_ARCH = "qwen3-14b"
+ZOO_OTHERS = ("codeqwen1.5-7b", "internlm2-1.8b", "deepseek-coder-33b",
+              "musicgen-large", "internvl2-2b")
+ZOO_BIG = "deepseek-coder-33b"
+ZOO_DEPTH = 2
+ZOO_REQUESTS, ZOO_SHARED = 8, 4          # engine requests; sharing a prefix
+ZOO_LATE, ZOO_AFTER = 4, 8               # the last 4 arrive after 8 steps
+ZOO_CHECK = (0, 1)                       # against lockstep at batch 1
+
+
+def zoo_spec(arch, **over):
+    """The main path's spec on ``arch`` at full width and depth."""
+    from repro_torch import api
+    return api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, "model.arch": arch, **over})
+
+
+def zoo_row(out, kernel, shape, run, fn, plain, lib, err, tol, nbytes,
+            flops=0.0, insns=0.0, plain_reps=1, reps=20):
+    """Time ``fn`` (the kernel), ``plain`` and ``lib`` and append the row
+    of ``kernel`` at ``shape`` to ``out``; ``run`` names the zoo run that
+    launches the kernel at this shape, whose count the row takes."""
+    b_ms, b_by = bound(nbytes, tensor_flops=flops, instructions=insns)
+    r = dict(shape=shape, run=run, max_abs_err=err, tolerance=tol,
+             ms=time_ms(fn, reps=reps),
+             plain_ms=time_ms(plain, reps=plain_reps),
+             bound_ms=b_ms, bound_by=b_by,
+             library_ms=None if lib is None else time_ms(lib, reps=reps))
+    out[kernel].append(r)
+    lib_s = "none" if lib is None else f"{r['library_ms']:.4f} ms"
+    log(f"[zoo] {kernel} {shape}: max|err| {err:.3e}; {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, library {lib_s}, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+
+
+def zoo_parity(cfg, eps):
+    """Each kernel against its plain version at Qwen3-14B's shapes (B =
+    16, S = 63, the +-eps pair): K2 at G = 5, 2 and 7 (8 KV heads); K3 at
+    wq/wo, wk/wv, wg/wu and wd; K4 on the untied head/w read as stored,
+    and on internvl2-2b's odd-vocabulary head by per-thread loads; K1
+    on head/w as one row.  Returns the ``zoo_shapes`` rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import zo_axpy as kzo
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2020)
+    B, S = 16, 63
+    M = B * S
+    D, Fd, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    out = {name: [] for name in SOURCES}
+    w_seed = 0xBEEF
+
+    # K2: the paired forward's attention at G query heads a KV head
+    pairs = S * (S + 1) // 2
+    for G, run in ((cfg.n_heads // KV, ZOO_ARCH), (2, "internlm2-1.8b"),
+                   (7, ZOO_BIG)):
+        q = torch.randn((2 * B, S, KV, G, dh), generator=g, device=dev,
+                        dtype=bf)
+        k = torch.randn((2 * B, S, KV, dh), generator=g, device=dev,
+                        dtype=bf)
+        v = torch.randn((2 * B, S, KV, dh), generator=g, device=dev,
+                        dtype=bf)
+        err = close(kfa.flash_attention(q, k, v, causal=True),
+                    kfa.flash_attention_plain(q, k, v, causal=True),
+                    f"flash_attention G = {G}")
+        qs = q.reshape(2 * B, S, KV * G, dh).transpose(1, 2).contiguous()
+        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        zoo_row(out, "flash_attention", f"q {tuple(q.shape)}, G = {G}", run,
+                lambda: kfa.flash_attention(q, k, v, causal=True),
+                lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True),
+                err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
+                flops=4.0 * 2 * B * KV * G * dh * pairs, plain_reps=2,
+                reps=50)
+        del q, k, v, qs, ks, vs
+
+    # K3: the layer's projections, both probes active
+    args = ((w_seed, w_seed), (eps, -eps), (True, True))
+    for name, (K, N) in (("wq, wo", (D, D)), ("wk, wv", (D, KV * dh)),
+                         ("wg, wu", (D, Fd)), ("wd", (Fd, D))):
+        x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
+        w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * K ** -0.5
+        err = close(fmm.pmatmul_stack(x, w, *args),
+                    fref.pmatmul_stack(x, w, *args),
+                    f"pmatmul_stack {name} ({K}, {N})")
+        zoo_row(out, "pmatmul_stack", f"{name}: x (2, {M}, {K}) @ W "
+                f"({K}, {N})", ZOO_ARCH,
+                lambda: fmm.pmatmul_stack(x, w, *args),
+                lambda: fref.pmatmul_stack(x, w, *args),
+                lambda: torch.matmul(x, w), err, CLOSE_TOL,
+                (x.numel() + w.numel() + 2 * M * N) * 2,
+                flops=2.0 * 2 * M * K * N, insns=K * N * RNG_OPS)
+        del x, w
+    torch.cuda.empty_cache()
+
+    # K4: the untied head read as stored, then an odd vocabulary's head
+    internvl = configs.get("internvl2-2b")
+    for tag, Dh, Vh, route, run in (
+            ("head/w", D, V, "tma", ZOO_ARCH),
+            ("internvl2-2b head/w", internvl.d_model, internvl.vocab,
+             "thread", "internvl2-2b")):
+        h = torch.randn((B, S, Dh), generator=g, device=dev, dtype=bf)
+        w = (torch.randn((Dh, Vh), generator=g, device=dev, dtype=bf)
+             * Dh ** -0.5)
+        for c in fmm.route_counters.values():
+            c.launches = 0
+        got = fmm.pmatmul(h, w, w_seed, eps, True)
+        routes = {n: c.launches for n, c in fmm.route_counters.items()}
+        if routes != {"tma": int(route == "tma"),
+                      "thread": int(route == "thread")}:
+            raise SystemExit(f"zoo: K4 on {tag} ({Dh}, {Vh}) loaded by "
+                             f"{routes}, want the {route} route")
+        err = close(got, fref.pmatmul(h, w, w_seed, eps, True),
+                    f"pmatmul {tag}")
+        del got
+        zoo_row(out, "pmatmul", f"{tag}: h ({B}, {S}, {Dh}) @ W ({Dh}, "
+                f"{Vh}), trans=False, {route} route", run,
+                lambda: fmm.pmatmul(h, w, w_seed, eps, True),
+                lambda: fref.pmatmul(h, w, w_seed, eps, True),
+                lambda: torch.matmul(h, w), err, CLOSE_TOL,
+                (h.numel() + w.numel() + M * Vh) * 2,
+                flops=2.0 * M * Dh * Vh, insns=Dh * Vh * RNG_OPS, reps=10)
+        del h, w
+        torch.cuda.empty_cache()
+
+    # K1: head/w's update sweep, one always-on row of D * V elements
+    n = D * V
+    theta = torch.randn((1, n), generator=g, device=dev, dtype=bf) * 0.02
+    one = torch.ones((1,), dtype=torch.bool)
+    got, want = theta.clone(), theta.clone()
+    kzo.zo_axpy_2d_(got, one, w_seed, -eps, 1.0)
+    kref.zo_axpy_2d_(want, one, w_seed, -eps, 1.0)
+    ulps = bf16_ulps(got, want).max().item()
+    if ulps > 1:
+        raise SystemExit(f"zo_axpy_2d head/w row: {ulps} bf16 ulp")
+    err = (got.float() - want.float()).abs().max().item()
+    del theta
+    zoo_row(out, "zo_axpy_2d", f"head/w as one row (1, {n}) bf16", ZOO_ARCH,
+            lambda: kzo.zo_axpy_2d_(got, one, w_seed, -eps, 1.0),
+            lambda: kref.zo_axpy_2d_(want, one, w_seed, -eps, 1.0),
+            None, err, f"<= 1 bf16 ulp (got {ulps})", n * 2 * 2,
+            insns=n * K1_OPS, reps=10)
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train(tag, spec, cfg=None, train_data=None):
+    """``steps`` virtual steps of ``spec`` through ``api.run`` (or, with
+    a cut ``cfg``, its ``Trainer``), counted: finite losses and the
+    launches ``expected_launches`` reckons; every K3/K4 launch by TMA but
+    an odd vocabulary's head.  Returns (history, launches, peak GiB)."""
+    from repro_torch import api
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.models import lm
+    from repro_torch.train.trainer import Trainer
+
+    trainer = None
+    if cfg is not None:
+        d = api.derive(spec)
+        trainer = Trainer(cfg, d.task, d.tcfg, d.est_cfg, _spec=spec,
+                          _derived=d)
+    for c in fmm.route_counters.values():
+        c.launches = 0
+    hist, launches, peak = run_counted(tag, spec, trainer=trainer,
+                                       train_data=train_data)
+    routes = {n: c.launches for n, c in fmm.route_counters.items()}
+    params = hist["final_params"]
+    cfg = cfg or api.derive(spec).model_cfg
+    want = expected_launches(spec, params, spec.run.steps, cfg=cfg)
+    if launches != want:
+        raise SystemExit(f"{tag}: launches {launches} != expected {want}")
+    thread = launches["pmatmul"] if (cfg.vocab * 2) % 16 else 0
+    k34 = launches["pmatmul_stack"] + launches["pmatmul"]
+    if routes != {"tma": k34 - thread, "thread": thread}:
+        raise SystemExit(f"{tag}: K3/K4 routes {routes}, want "
+                         f"{k34 - thread} by TMA and {thread} by thread")
+    log(f"[{tag}] {lm.count_params(params) / 1e9:.3f} B parameters; K3/K4 "
+        f"routes {routes}")
+    return hist, launches, peak
+
+
+def phase_zoo(eps):
+    """The dense model zoo on the card (see the module docstring); returns
+    the ``zoo_shapes`` rows by kernel, each carrying the kernel's
+    launches in the zoo run that exercises its shape (``run``: Qwen3-14B's
+    4 steps, its lockstep generate, internlm2-1.8b's or internvl2-2b's
+    cut run, deepseek-coder-33b's full-depth run)."""
+    import statistics
+
+    import torch
+    from repro_torch import api, configs, obs, serving
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import frontends, lm
+
+    cfg = configs.get(ZOO_ARCH)
+    rows = zoo_parity(cfg, eps)
+
+    # Qwen3-14B at full width and depth: 4 steps, the probe gates
+    spec = zoo_spec(ZOO_ARCH)
+    hist, launches, peak = zoo_train(f"zoo {ZOO_ARCH}", spec)
+    runs = {ZOO_ARCH: launches}        # each zoo run's launches by kernel
+    params = hist["final_params"]
+    del hist
+    pair, mat, rel, direct, gap = probe_gap(spec, cfg, params)
+    planted = probe_gap(spec, cfg, params, plant=PLANT)[4]
+    log(f"[zoo] {ZOO_ARCH} virtual pair {pair} vs materialized {mat}: rel "
+        f"diff {rel}; theta - eps z rel diff {gap}; planted theta - "
+        f"{PLANT} eps z {planted} (must fail the gate)")
+    if max(rel) > 1e-2 or not direct_gate(gap) or direct_gate(planted):
+        raise SystemExit(f"zoo: {ZOO_ARCH} virtual against materialized "
+                         "probes outside the check phase's gates")
+
+    # 20 steady steps, telemetry off; idle share; a profiled step
+    steady = api.with_overrides(spec, {"run.steps": TRACE_WARM + TRACE_STEPS})
+    hist, n, peak = run_counted(f"zoo {ZOO_ARCH} steady", steady, params)
+    check_launches(f"zoo {ZOO_ARCH} steady", steady, params, n)
+    secs = hist["step_seconds"][TRACE_WARM:]
+    del hist
+    busy, wall, idle = device_idle_share(spec, cfg, params, TRACE_STEPS)
+    log(f"[zoo] {ZOO_ARCH} {TRACE_STEPS} steady steps: step_seconds "
+        f"{stats(secs)}; peak memory {peak:.2f} GiB; torch.profiler: wall "
+        f"{wall:.4f} s, device busy {busy:.4f} s, idle share {idle:.4f}")
+    phase_profile(spec, cfg, params, tag="zoo profile")
+
+    # serving Qwen3-14B: lockstep, then the engine with sharing off and on
+    sv = api.with_overrides(spec, SERVE_OVERRIDES)
+    api.validate(sv)
+    gen = torch.Generator(device="cpu").manual_seed(sv.run.seed)
+    Bl, Sl, Gl = SERVE_LOCKSTEP
+    toks = torch.randint(0, cfg.vocab, (Bl, Sl), generator=gen).cuda()
+    last = {}
+
+    def capture(q, k, v, **kw):
+        last.update(q=q, k=k, v=v, kw=kw)
+        return kernel(q, k, v, **kw)
+    kernel = kfa.flash_attention
+    with swap_k2(capture):
+        out, n, peak, wall = counted(lambda: serve_mod.generate(
+            cfg, params, toks, Gl, max_seq=Sl + Gl + 1))
+    log(f"[zoo] lockstep generate ({Bl}, {Sl}) + {Gl}: {wall:.3f} s, "
+        f"{Bl * Gl / wall:.1f} tok/s, peak {peak:.2f} GiB, launches {n}")
+    if n != {"zo_axpy_2d": 0, "flash_attention": cfg.num_layers,
+             "pmatmul_stack": 0, "pmatmul": 0} or tuple(out.shape) != (
+                 Bl, Gl):
+        raise SystemExit(f"zoo: lockstep launches {n} or tokens "
+                         f"{tuple(out.shape)}")
+    q, k, v, kw = last["q"], last["k"], last["v"], last["kw"]
+    err = close(kfa.flash_attention(q, k, v, **kw),
+                kfa.flash_attention_plain(q, k, v, **kw),
+                "flash_attention zoo lockstep prefill")
+    H = q.shape[2] * q.shape[3]
+    qs = q.reshape(Bl, Sl, H, -1).transpose(1, 2).contiguous()
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    runs["lockstep"] = n
+    zoo_row(rows, "flash_attention", f"lockstep prefill {tuple(q.shape)}, "
+            "the last layer's inputs", "lockstep",
+            lambda: kfa.flash_attention(q, k, v, **kw),
+            lambda: kfa.flash_attention_plain(q, k, v, **kw),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True), err, CLOSE_TOL,
+            (2 * q.numel() + k.numel() + v.numel()) * 2,
+            flops=4.0 * Bl * H * q.shape[-1] * (Sl * (Sl + 1) // 2))
+    del q, k, v, qs, ks, vs, last, out
+    logits, caches = lm.prefill(cfg, params, toks, max_seq=Sl + Gl + 1)
+    tok = torch.argmax(logits, -1)[:, None]
+    for i in range(2):                                    # warm
+        lm.serve_step(cfg, params, caches, tok, Sl + i)
+    profile_one("zoo", lambda: lm.serve_step(cfg, params, caches, tok,
+                                             Sl + 2),
+                f"one lockstep decode step ({Bl} lanes at {Sl + 2})")
+    del logits, caches, tok, toks
+
+    reqs = serve_requests(cfg.vocab, seed=sv.run.seed, n=ZOO_REQUESTS,
+                          shared=ZOO_SHARED)
+    mk = lambda: [serving.Request(rid=rid, tokens=t, seed=SEED_BASE + rid)
+                  for rid, t in reqs]
+    sess = obs.session(api.Telemetry(enabled=True, fence=True, ring=8192))
+    eng = serve_engine(cfg, params, sv, sess)
+    arena_gib = sum(t.numel() * t.element_size()
+                    for b in eng.arena.values() for lv in b.values()
+                    for t in lv.values()) / 2 ** 30
+    tapped = tap_sampler(eng, {SEED_BASE + r for r in ZOO_CHECK})
+    early, late = mk()[:-ZOO_LATE], mk()[-ZOO_LATE:]
+    (base, results, wall), n, _, _ = counted(lambda: drain(
+        eng, early, late=late, after=ZOO_AFTER))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ttft = sorted(r.ttft for r in results)
+    n_tok = sum(len(t) for t in base.values())
+    dec = [r.dt * 1e3 for r in sess.ring.spans(obs.SERVE_DECODE)]
+    pre = [r.dt * 1e3 for r in sess.ring.spans(obs.SERVE_PREFILL)]
+    log(f"[zoo] engine sharing off: {len(results)} requests, {n_tok} tokens "
+        f"in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+        f"{eng.n_prefill_calls} prefill calls, {eng.n_decode_steps} decode "
+        f"steps; TTFT median {statistics.median(ttft):.3f} s, p90 "
+        f"{ttft[int(0.9 * (len(ttft) - 1))]:.3f} s; decode step median "
+        f"{statistics.median(dec):.2f} ms, prefill chunk median "
+        f"{statistics.median(pre):.2f} ms (fenced spans); peak "
+        f"{peak:.2f} GiB, arena {arena_gib:.3f} GiB; launches {n}")
+    if (sorted(base) != list(range(ZOO_REQUESTS)) or eng.pool.in_use
+            or any(n.values())):
+        raise SystemExit(f"zoo: engine results {sorted(base)}, "
+                         f"{eng.pool.in_use} pages left, launches {n}")
+    tapped = tapped()
+    decode_profile("zoo", eng, reqs, sv)
+    eng.run([])
+    sess.close()
+    del eng, sess
+    on = api.with_overrides(sv, {"serving.prefix_cache": True})
+    eng = serve_engine(cfg, params, on)
+    got, _, wall = drain(eng, mk()[:-ZOO_LATE], late=mk()[-ZOO_LATE:],
+                         after=ZOO_AFTER)
+    log(f"[zoo] engine prefix_cache: {wall:.3f} s, page hit rate "
+        f"{eng.sched.page_hit_rate:.3f}, {eng.sched.cow_copies} COW copies")
+    diff = sorted(r for r in base if got.get(r) != base[r])
+    if diff or not eng.sched.page_hit_rate > 0:
+        raise SystemExit(f"zoo: prefix_cache tokens differ for rids {diff} "
+                         f"or no page shared")
+    del eng
+    engine_vs_lockstep("zoo", cfg, params, sv, reqs, base, tapped,
+                       ZOO_CHECK)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the other dense configs at full width, cut in depth
+    for arch in ZOO_OTHERS:
+        full = configs.get(arch)
+        cut = dataclasses.replace(full, stages=(dataclasses.replace(
+            full.stages[0], repeat=ZOO_DEPTH),))
+        sp = zoo_spec(arch, **{"run.steps": 2})     # LeZO's drop at the cut
+        sp = api.with_overrides(sp, {"optimizer.n_drop": int(
+            sp.optimizer.sparsity * ZOO_DEPTH)})
+        data = None
+        if frontends.uses_embeds(cut):
+            data = synthetic.make_dataset(api.derive(sp).task, 64)
+            data["embeds"] = frontends.stub_embeddings(
+                cut, *data["tokens"].shape, seed=1).float().cpu().numpy()
+        hist, runs[arch], peak = zoo_train(
+            f"zoo {arch} cut to {ZOO_DEPTH} of {full.num_layers} layers",
+            sp, cfg=cut, train_data=data)
+        del hist, data
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # deepseek-coder-33b at full width and depth on the one card
+    hist, runs[ZOO_BIG], peak = zoo_train(
+        f"zoo {ZOO_BIG} full", zoo_spec(ZOO_BIG, **{"run.steps": 2}))
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    log(f"[zoo] {ZOO_BIG} at full width and depth: peak memory "
+        f"{peak:.2f} GiB of the card's {total:.2f} GiB")
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            r["launches"] = runs[r["run"]][name]
+    return rows
 
 
 # FO at the depths the float32 master weights leave room for on 80 GB:
@@ -2082,19 +2524,20 @@ TRACE_STEPS, TRACE_WARM = 20, 2     # steady steps, warm-up steps
 def expected_tiles(cfg, spec, layer_sels):
     """(w_tile_loads, z_regens) the main path's steps must count, from
     K3/K4's grid (``fused.matmul.tile_counts``): per step, each layer's
-    six projections as one K3 launch of the +-eps pair (P = 2, one seed),
-    active where the step's recorded ``layer_sel`` says, and the tied
-    head as two K4 launches (one a probe), always active."""
+    projections (``model_matmuls``) as one K3 launch each of the +-eps
+    pair (P = 2, one seed), active where the step's recorded
+    ``layer_sel`` says, and the head as two K4 launches (one a probe),
+    always active."""
     from repro_torch.fused import matmul as fmm
-    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    layer, head = fmm.model_matmuls(cfg)
     M = spec.run.batch_size * (spec.model.seq_len - 1)
     w = z = 0
     for sel in layer_sels:
         for on in sel:
-            for K, N in [(D, D)] * 4 + [(D, F), (F, D)]:
+            for K, N in layer:
                 dw, dz = fmm.tile_counts(M, K, N, (1, 1), (bool(on),) * 2)
                 w, z = w + dw, z + dz
-        dw, dz = fmm.tile_counts(M, D, V, (1,), (True,))
+        dw, dz = fmm.tile_counts(M, *head, (1,), (True,))
         w, z = w + 2 * dw, z + 2 * dz
     return w, z
 
@@ -2311,8 +2754,8 @@ SOURCES = {
 
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
-          "replay", "estimators", "momentum", "tasks", "peft", "serve", "fo",
-          "resume", "swarm")
+          "replay", "estimators", "momentum", "tasks", "peft", "serve", "zoo",
+          "fo", "resume", "swarm")
 
 
 def main() -> int:
@@ -2377,9 +2820,12 @@ def main() -> int:
     if "serve" in phases:
         rows.setdefault("flash_attention", {})["serve_shapes"] = \
             phase_serve(hold, cfg)
-    hold.clear()                     # FO builds its own cut weights
+    hold.clear()                     # the zoo and FO build their own weights
     gc.collect()
     torch.cuda.empty_cache()
+    if "zoo" in phases:
+        for name, shapes in phase_zoo(spec.optimizer.eps).items():
+            rows.setdefault(name, {})["zoo_shapes"] = shapes
     if "fo" in phases:
         phase_fo(cfg)
     if "resume" in phases:

@@ -11,6 +11,7 @@ from repro_torch.api.validate import n_drop_for
 from repro_torch.api.validate import validate as validate_spec
 from repro_torch.core import fo
 from repro_torch.data import synthetic
+from repro_torch.models import lm
 from repro_torch.peft import lora as lora_mod
 from repro_torch.peft import prefix as prefix_mod
 
@@ -74,6 +75,7 @@ def _summary(spec: Experiment, trainer, hist: Dict) -> Dict:
         "task": spec.task.name or "synthetic",
         "metric": hist.get("metric_name", "val_loss"),
         "n_layers": d.model_cfg.num_layers, "n_drop": d.n_drop,
+        "n_params": lm.count_params(trainer.base_params),
         "final_loss": hist["loss"][-1] if hist["loss"] else None,
         "val_loss": hist["val_loss"], "val_acc": hist["val_acc"],
         "best_step": hist.get("best_step"),

@@ -1,7 +1,8 @@
 """Spec validation of the port (counterpart of ``repro/api/validate.py``).
 
-Accepts what the port runs: training and evaluation of the OPT family on
-the synthetic task or a registry task, single process, in every
+Accepts what the port runs: training and evaluation of OPT and the dense
+model zoo (every ``attn + dense`` config) on the synthetic task or a
+registry task, single process, in every
 optimizer mode (``zo`` with any estimator, ``zo_momentum``, ``fo``),
 over the full model or a PEFT tree (LoRA, prefix), any axpy backend, any
 forward backend, the loss-shard quorum and checkpoint/resume, under the
@@ -13,6 +14,8 @@ under the reference's swarm rules, and the serving engine's knobs
 :class:`SpecError` naming the field and saying "not yet ported", before
 any parameter is allocated.
 """
+from typing import List
+
 from repro_torch import configs
 from repro_torch import tasks as tasks_mod
 from repro_torch.api.spec import Experiment, SpecError, UnknownTaskError
@@ -49,6 +52,12 @@ def resolve_model(spec: Experiment):
         raise SpecError("model.variant",
                         f"config module for {spec.model.arch!r} has no "
                         f"variant {spec.model.variant!r}") from None
+
+
+def virtual_block_errors(model_cfg) -> List[str]:
+    """Block kinds the fused virtual forward cannot cover (DESIGN.md §10)."""
+    return sorted({f"{b.kind}+{b.ffn}" for s in model_cfg.stages
+                   for b in s.pattern if b.kind != "attn" or b.ffn == "moe"})
 
 
 def validate(spec: Experiment):
@@ -131,6 +140,10 @@ def validate(spec: Experiment):
                  "(no PEFT merge)")
         _require(o.mode == "zo", "optimizer.mode",
                  "forward_backend='virtual' requires mode='zo'")
+        bad = virtual_block_errors(mcfg)
+        _require(not bad, "runtime.forward_backend",
+                 "'virtual' covers attn + dense blocks; "
+                 f"model.arch={m.arch!r} has {bad}")
 
     # serving engine node (DESIGN.md §12): the pool/bucket arithmetic
     # must close before any arena is allocated

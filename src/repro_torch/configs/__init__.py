@@ -1,11 +1,18 @@
-"""Architecture registry of the port: the OPT entries of
-``repro/configs/__init__.py``.  Other architectures are not yet ported;
-``api/validate.py`` names them so."""
+"""Architecture registry of the port: the OPT entries and the dense
+``attn + dense`` model zoo of ``repro/configs/__init__.py``.  The MoE,
+MLA and SSM architectures are not yet ported; ``api/validate.py`` names
+them so."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "qwen3-14b": "qwen3_14b",
+    "musicgen-large": "musicgen_large",
+    "internvl2-2b": "internvl2_2b",
     "opt-13b": "opt",
 }
 

@@ -102,6 +102,19 @@ def tile_counts(M: int, K: int, N: int, seeds, active):
     return w, z
 
 
+def model_matmuls(cfg):
+    """The weight matmuls one probe's forward makes, as (K, N) of W:
+    (each layer's, in order: wq, wk, wv, wo, then wg, wu, wd for SwiGLU
+    or wi, wd; the head's (D, V), tied or not).  A paired forward makes
+    each layer's as one K3 launch and the head as one K4 launch a probe
+    and CE chunk; ``tile_counts`` of these gives the tile counters."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = [(D, H * dh), (D, KV * dh), (D, KV * dh), (H * dh, D)]
+    ffn = ([(D, F), (D, F)] if cfg.act == "silu" else [(D, F)]) + [(F, D)]
+    return attn + ffn, (D, V)
+
+
 def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off,
             out=None):
     P, K = x.shape[0], x.shape[-1]

@@ -13,8 +13,8 @@ port's forward is a Python loop over layers, so nothing is traced.
 
 ``impl="pallas"`` sends weight matmuls to kernels K3/K4
 (``fused/matmul.py``); ``impl="ref"`` to the plain versions.  Vector
-leaves (norm scale/bias) and the embeddings always take the plain path:
-they are activation-sized.
+leaves (norm scale/bias, qk-norm scales) and the embeddings always take
+the plain path: they are activation-sized.
 
 Paired probes (:class:`ProbePair`): a ctx may carry P probes riding ONE
 forward whose activations fold the probe axis into the batch, p-major
@@ -143,15 +143,22 @@ class LayerPerturb:
             return fref.pvec(w, seed, self.ctx.scale, self.active)
         return fref.pvec_stack(w, seed, self.ctx.scale, self.active)
 
+    def norm(self, p: Dict[str, Any], name: str = "") -> Dict[str, Any]:
+        """Perturbed view of a norm param dict ({scale[, bias]}).
+        Unpaired only: paired call sites use :meth:`apply_norm` /
+        :meth:`rms_norm`, which broadcast the (P, D) perturbed vectors
+        against the probe-folded activations."""
+        sub = self.child(name) if name else self
+        return {k: sub.vec(v, k) for k, v in p.items()}
+
     def apply_norm(self, cfg, p: Dict[str, Any], x, name: str = ""):
         """``layers.apply_norm`` against the perturbed norm leaves.
         Paired: each probe normalizes its slice of the p-major batch
         against its own perturbed (D,) vectors."""
         from repro_torch.models import layers  # local: avoid import cycle
-        sub = self.child(name) if name else self
         if self.ctx.pair is None:
-            return layers.apply_norm(
-                cfg, {k: sub.vec(v, k) for k, v in p.items()}, x)
+            return layers.apply_norm(cfg, self.norm(p, name), x)
+        sub = self.child(name) if name else self
         shp = x.shape
         xs = x.reshape(self.nprobes, -1, shp[-1])
         bc = lambda v: v[:, None, :]                  # (P, D) -> (P, 1, D)
@@ -160,4 +167,17 @@ class LayerPerturb:
         else:
             y = layers.layer_norm(xs, bc(sub.vec(p["scale"], "scale")),
                                   bc(sub.vec(p["bias"], "bias")))
+        return y.reshape(shp)
+
+    def rms_norm(self, x, w, name: str = ""):
+        """``layers.rms_norm(x, w + scale*z)`` for a bare vector leaf
+        (qk-norm's ``q_norm/scale``, ``k_norm/scale``).  Paired: each
+        probe's perturbed (dh,) vector broadcasts over its slice of the
+        probe-folded leading dim."""
+        from repro_torch.models import layers
+        if self.ctx.pair is None:
+            return layers.rms_norm(x, self.vec(w, name))
+        shp = x.shape
+        xs = x.reshape(self.nprobes, -1, shp[-1])
+        y = layers.rms_norm(xs, self.vec(w, name)[:, None, :])
         return y.reshape(shp)

@@ -253,7 +253,7 @@ def _cmd_serve(ns):
     from repro_torch import obs, resolve_device
     from repro_torch import serving as serving_mod
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import lm
+    from repro_torch.models import frontends, lm
 
     spec = build_spec(ns)
     cfg = api.validate(spec)
@@ -264,6 +264,9 @@ def _cmd_serve(ns):
         raise SystemExit(
             f"{spec.model.arch} has non-attn mixers or a stub frontend; "
             "the paged engine does not cover it — use --engine lockstep")
+    if engine_mode == "lockstep" and frontends.uses_embeds(cfg):
+        raise SystemExit(f"{spec.model.arch} takes stub embeddings; "
+                         "neither serve path covers it")
     dev = resolve_device(ns.device)
     gen = torch.Generator(device=dev).manual_seed(spec.run.seed)
     params = lm.init_params(cfg, gen, dev)

@@ -16,8 +16,7 @@ Every (stage, pattern position) is a ZO layer *group* whose parameters are
 stacked over ``repeat``; the global LeZO layer index space enumerates all
 ``sum(repeat * len(pattern))`` blocks.
 
-The port keeps its own copy so it imports nothing of the JAX package;
-this slice runs the OPT family only (``api/validate.py``).
+The port keeps its own copy so it imports nothing of the JAX package.
 """
 from __future__ import annotations
 

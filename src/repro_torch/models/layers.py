@@ -1,7 +1,8 @@
-"""Transformer layers of the OPT stack (counterpart of
-``repro/models/layers.py``): norms, flash attention, the attention block
-in its four modes (train, and the serving modes prefill, decode and
-paged), decode and paged attention, and the ReLU FFN.
+"""Transformer layers of the dense stack (counterpart of
+``repro/models/layers.py``): norms, rope, flash attention, the GQA
+attention block (qk-norm, rope) in its four modes (train, and the
+serving modes prefill, decode and paged), decode and paged attention,
+and the dense FFN (SwiGLU, tanh-GELU or ReLU).
 
 A block's parameters arrive as one layer's slice of the stacked leaves.
 Activations are (B, S, D) in the model dtype.  ``pc``
@@ -13,7 +14,7 @@ The serving modes write their K/V into caches in place: the lockstep
 cache (R, B, Smax, KV, dh) and the paged arena (R, n_pages, page_size,
 KV, dh) are the reference's layouts, one layer's slice at a time.
 Decode and paged attention are plain PyTorch, as the reference's are
-``einsum``s outside any Pallas kernel.
+``einsum``s outside any Pallas kernel; so are rope and the norms.
 """
 from __future__ import annotations
 
@@ -53,6 +54,25 @@ def norm_params(cfg, d, device):
     return p
 
 
+# ------------------------------------------------------------------ rope
+def rope(x, positions, theta=10000.0):
+    """x: (B, S, n, d) with d even; positions: (S,) shared across the
+    batch, or (B, S) per lane (the paged serving path, where every lane
+    sits at its own position).  float32 in the reference's order:
+    frequencies, angles, cos/sin, then the split-half rotation."""
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=F32,
+                                          device=x.device) / d))
+    ang = positions.to(F32)[..., None] * freqs    # (S, d/2) | (B, S, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if positions.ndim == 1:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # -------------------------------------------------------- flash attention
 def flash_attention(q, k, v, *, causal=True, q_offset=0, k_offset=0,
                     q_chunk=512, k_chunk=512):
@@ -74,31 +94,46 @@ def randn_scaled(shape, std, gen, dtype, device):
                        device=device).mul_(std)
 
 
+def _stacked(leaf: torch.Tensor, L: int) -> torch.Tensor:
+    return leaf.expand(L, *leaf.shape).clone()
+
+
 def attn_params(cfg, gen, L, device):
-    """One attention block's leaves, stacked over ``L`` layers."""
+    """One attention block's leaves, stacked over ``L`` layers; the
+    qk-norm scales are float32 ones, as the reference's."""
     D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = getattr(torch, cfg.dtype)
     std = D ** -0.5
-    return {
-        "norm": {k: v.expand(L, -1).clone()
+    p = {
+        "norm": {k: _stacked(v, L)
                  for k, v in norm_params(cfg, D, device).items()},
         "wq": randn_scaled((L, D, H * dh), std, gen, dt, device),
         "wk": randn_scaled((L, D, KV * dh), std, gen, dt, device),
         "wv": randn_scaled((L, D, KV * dh), std, gen, dt, device),
         "wo": randn_scaled((L, H * dh, D), (H * dh) ** -0.5, gen, dt, device),
     }
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = {"scale": _stacked(
+                torch.ones((dh,), dtype=F32, device=device), L)}
+    return p
 
 
 def ffn_params(cfg, gen, L, device):
-    """One ReLU FFN block's leaves, stacked over ``L`` layers."""
+    """One dense FFN block's leaves, stacked over ``L`` layers: gate and
+    up projections for SwiGLU (``act == "silu"``), one input projection
+    otherwise."""
     D, F = cfg.d_model, cfg.d_ff
     dt = getattr(torch, cfg.dtype)
-    return {
-        "norm": {k: v.expand(L, -1).clone()
-                 for k, v in norm_params(cfg, D, device).items()},
-        "wi": randn_scaled((L, D, F), D ** -0.5, gen, dt, device),
-        "wd": randn_scaled((L, F, D), F ** -0.5, gen, dt, device),
-    }
+    p = {"norm": {k: _stacked(v, L)
+                  for k, v in norm_params(cfg, D, device).items()}}
+    if cfg.act == "silu":
+        p["wg"] = randn_scaled((L, D, F), D ** -0.5, gen, dt, device)
+        p["wu"] = randn_scaled((L, D, F), D ** -0.5, gen, dt, device)
+    else:
+        p["wi"] = randn_scaled((L, D, F), D ** -0.5, gen, dt, device)
+    p["wd"] = randn_scaled((L, F, D), F ** -0.5, gen, dt, device)
+    return p
 
 
 def _mm(pc):
@@ -154,8 +189,12 @@ def paged_attention(q, k, v, q_positions):
 
 def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
              pages=None):
-    """Causal self-attention block (learned positions are added by the
-    caller; OPT has no rope).  Returns the block's output.
+    """Causal self-attention block with GQA: qk-norm (``cfg.qk_norm``)
+    on the (B, S, H, dh) heads, then rope (``cfg.pos_emb == "rope"``;
+    learned positions are added by the caller) at the positions
+    ``pos + arange(S)``, per lane in ``paged`` mode, and only then the
+    fold of query head h = kv·G + g into (B, S, KV, G, dh), the index map
+    K2 reads.  Returns the block's output.
 
     mode: ``train`` (no cache) | ``prefill`` (K2 over the prompt; its K/V
     written to ``cache["k"/"v"]`` (B, Smax, KV, dh) at [0, S), the rest
@@ -184,12 +223,26 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
     mm = _mm(pc)
     h = (apply_norm(cfg, p["norm"], x) if pc is None
          else pc.apply_norm(cfg, p["norm"], x, "norm"))
-    q = mm(h, p["wq"], "wq").reshape(B, S, KV, H // KV, dh)
+    q = mm(h, p["wq"], "wq").reshape(B, S, H, dh)
     k = mm(h, p["wk"], "wk").reshape(B, S, KV, dh)
     v = mm(h, p["wv"], "wv").reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        if pc is None:
+            q = rms_norm(q, p["q_norm"]["scale"])
+            k = rms_norm(k, p["k_norm"]["scale"])
+        else:
+            q = pc.rms_norm(q, p["q_norm"]["scale"], "q_norm/scale")
+            k = pc.rms_norm(k, p["k_norm"]["scale"], "k_norm/scale")
+    if mode == "paged" or cfg.pos_emb == "rope":
+        steps = torch.arange(S, device=x.device)
+        positions = (pos[:, None] + steps[None] if mode == "paged"
+                     else pos + steps)
+    if cfg.pos_emb == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q = q.reshape(B, S, KV, H // KV, dh)
     if mode == "paged":
         Pn, psz = cache["k"].shape[0], cache["k"].shape[1]
-        positions = pos[:, None] + torch.arange(S, device=x.device)[None]
         page = torch.gather(pages, 1, torch.div(positions, psz,
                                                 rounding_mode="floor"))
         flat = (page * psz + positions % psz).reshape(-1)
@@ -221,9 +274,17 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
 
 
 def ffn_fwd(cfg, p, x, pc=None):
-    """ReLU FFN block (OPT's)."""
+    """Dense FFN block: SwiGLU ``silu(h·wg in float32) * (h·wu)``,
+    tanh-GELU (``jax.nn.gelu``'s default) or ReLU, then ``wd``."""
     mm = _mm(pc)
     h = (apply_norm(cfg, p["norm"], x) if pc is None
          else pc.apply_norm(cfg, p["norm"], x, "norm"))
-    a = torch.relu(mm(h, p["wi"], "wi"))
+    if cfg.act == "silu":
+        a = (torch.nn.functional.silu(mm(h, p["wg"], "wg").to(F32)).to(
+            x.dtype) * mm(h, p["wu"], "wu"))
+    elif cfg.act == "gelu":
+        a = torch.nn.functional.gelu(mm(h, p["wi"], "wi").to(F32),
+                                     approximate="tanh").to(x.dtype)
+    else:
+        a = torch.relu(mm(h, p["wi"], "wi"))
     return mm(a, p["wd"], "wd").to(x.dtype)

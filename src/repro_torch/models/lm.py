@@ -4,9 +4,12 @@ points (counterpart of ``repro/models/lm.py``).
 Parameters live in an ``nn.Module`` tree shaped like the reference's
 dict tree::
 
-    embed.tok (V, D), embed.pos (max_seq, D), final_norm.{scale,bias},
-    stages.s{i}.b{j}.mix.{norm.scale, norm.bias, wq, wk, wv, wo},
-    stages.s{i}.b{j}.ffn.{norm.scale, norm.bias, wi, wd}
+    embed.tok (V, D) [, embed.pos (max_seq, D)]   # learned positions
+    final_norm.{scale[, bias]}
+    [head.w (D, V)]                              # absent when tied
+    stages.s{i}.b{j}.mix.{norm.*, wq, wk, wv, wo[, q_norm.scale,
+                          k_norm.scale]}
+    stages.s{i}.b{j}.ffn.{norm.*, wg, wu | wi, wd}
 
 with every leaf under ``stages`` stacked over its stage's ``repeat`` on
 axis 0, so ``named_parameters()`` with ``.`` read as ``/`` gives the
@@ -44,7 +47,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.core import zo
 from repro_torch.fused import ref as fused_ref
-from repro_torch.models import layers
+from repro_torch.models import frontends, layers
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
@@ -92,15 +95,12 @@ class LM(ParamNode):
 
 
 def _check_supported(cfg: ModelConfig):
+    """The port runs ``attn + dense`` blocks (the dense zoo and OPT)."""
     for st in cfg.stages:
         for b in st.pattern:
             if b.kind != "attn" or b.ffn != "dense":
                 raise NotImplementedError(
                     f"{b.kind}+{b.ffn} blocks are not yet ported")
-    if cfg.pos_emb != "learned" or cfg.act != "relu" or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            "this slice ports the OPT stack (learned positions, relu, tied "
-            "head) only")
 
 
 # ------------------------------------------------------------------ init
@@ -110,13 +110,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> LM:
     _check_supported(cfg)
     dt = getattr(torch, cfg.dtype)
     D = cfg.d_model
+    embed = {"tok": layers.randn_scaled((cfg.vocab, D), 0.02, gen, dt,
+                                        device)}
+    if cfg.pos_emb == "learned":
+        embed["pos"] = layers.randn_scaled((cfg.max_seq, D), 0.02, gen, dt,
+                                           device)
     tree = {
-        "embed": {
-            "tok": layers.randn_scaled((cfg.vocab, D), 0.02, gen, dt,
-                                       device),
-            "pos": layers.randn_scaled((cfg.max_seq, D), 0.02, gen, dt,
-                                       device),
-        },
+        "embed": embed,
         "final_norm": layers.norm_params(cfg, D, device),
         "stages": {
             f"s{si}": {
@@ -127,6 +127,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> LM:
                 for bj, _ in enumerate(st.pattern)}
             for si, st in enumerate(cfg.stages)},
     }
+    if not cfg.tie_embeddings:
+        tree["head"] = {"w": layers.randn_scaled((D, cfg.vocab), D ** -0.5,
+                                                 gen, dt, device)}
     return LM(cfg, tree)
 
 
@@ -236,6 +239,18 @@ def zo_group_fn(path: str) -> Optional[str]:
     return None
 
 
+def count_params(params) -> int:
+    return sum(t.numel() for _, t in zo.leaf_items(params))
+
+
+def count_active_params(cfg: ModelConfig, params) -> int:
+    """Parameters a token's matmuls read (the embedding lookups are not
+    matmuls), for MODEL_FLOPS = 6·N_active·tokens; every ported block
+    is dense, so no expert share is taken."""
+    return sum(t.numel() for path, t in zo.leaf_items(params)
+               if path not in ("embed/tok", "embed/pos"))
+
+
 # --------------------------------------------------------------- forward
 def _run_block(cfg, p, x, pc=None, **mix_kw):
     x = x + layers.attn_fwd(cfg, p["mix"], x,
@@ -246,40 +261,56 @@ def _run_block(cfg, p, x, pc=None, **mix_kw):
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
-            mode="train", caches=None, pos=0, pages=None):
-    """tokens (B, S) -> hidden (B, S, D) in train mode; (hidden,
+            mode="train", caches=None, pos=0, pages=None, embeds=None):
+    """tokens (B, S), or ``embeds`` (B, S, D) for stub frontends (cast
+    to ``cfg.dtype``) -> hidden (B, S, D) in train mode; (hidden,
     caches) in a serving mode.
 
     ``perturb`` (fused.PerturbCtx, train mode only) runs the forward
     against the virtually perturbed weights theta + s*eps*z; a paired ctx
     folds its P probes into the batch, p-major, and returns (P·B, S, D).
+    Stub embeddings are tiled p-major over the probes too (the
+    reference's paired forward does not tile them and fails there).
 
     mode: ``prefill`` (fill ``caches``, an ``init_cache`` tree, from
     position 0) | ``decode`` (S == 1 at position ``pos``, an int) |
     ``paged`` (``caches`` is the ``init_paged_cache`` arena, ``pages``
     the (B, max_pages) page table and ``pos`` a (B,) tensor of per-lane
-    start positions, each lane reading its own learned positions).  The
-    caches are written in place and returned, per stage and block."""
+    start positions, each lane at its own positions).  The caches are
+    written in place and returned, per stage and block."""
     if mode != "train" and perturb is not None:
         raise NotImplementedError(f"mode={mode!r} takes no perturbation")
     P = 0 if (perturb is None or perturb.pair is None) else perturb.pair.n
-    tok, pos_w = params["embed"]["tok"], params["embed"]["pos"]
-    S = tokens.shape[1]
-    if mode == "paged":
-        ppos = pos[:, None] + torch.arange(S, device=tokens.device)[None]
-        x = tok[tokens] + pos_w[ppos]
+    tok = params["embed"]["tok"]
+    if embeds is not None:
+        x = embeds.to(getattr(torch, cfg.dtype))
+        if P:
+            x = x.repeat(P, 1, 1)                    # (P·B, S, D), p-major
     elif perturb is None:
-        x = tok[tokens] + pos_w[pos:pos + S]
+        x = tok[tokens]
     else:
         tseed = fused_ref.layer_seed(perturb.seed, "embed/tok")
-        pseed = fused_ref.layer_seed(perturb.seed, "embed/pos")
         if P:
             x = fused_ref.pembed_stack(tok, tokens, tseed, perturb.scale)
-            rows = fused_ref.ppos_stack(pos_w, 0, S, pseed, perturb.scale)
-            x = (x + rows[:, None]).reshape(-1, *x.shape[2:])
+            x = x.reshape(-1, *x.shape[2:])
         else:
-            x = (fused_ref.pembed(tok, tokens, tseed, perturb.scale)
-                 + fused_ref.ppos(pos_w, 0, S, pseed, perturb.scale))
+            x = fused_ref.pembed(tok, tokens, tseed, perturb.scale)
+    S = x.shape[1]
+    if cfg.pos_emb == "learned":
+        pos_w = params["embed"]["pos"]
+        if mode == "paged":
+            x = x + pos_w[pos[:, None]
+                          + torch.arange(S, device=x.device)[None]]
+        elif perturb is None:
+            x = x + pos_w[pos:pos + S]
+        else:
+            pseed = fused_ref.layer_seed(perturb.seed, "embed/pos")
+            if P:
+                rows = fused_ref.ppos_stack(pos_w, 0, S, pseed, perturb.scale)
+                x = (x.reshape(P, -1, *x.shape[1:]) + rows[:, None]
+                     ).reshape(x.shape)
+            else:
+                x = x + fused_ref.ppos(pos_w, 0, S, pseed, perturb.scale)
     for si, st in enumerate(cfg.stages):
         sp = params["stages"][f"s{si}"]
         pmasks = (None if perturb is None else
@@ -305,12 +336,14 @@ def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
                                                  x)
 
 
-def _head_matrix(params):
-    return params["embed"]["tok"].T          # tied head: a view, no copy
+def _head_matrix(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"]["tok"].T      # tied head: a view, no copy
+    return params["head"]["w"]
 
 
 def logits_fn(cfg, params, hidden):
-    return (hidden @ _head_matrix(params)).to(F32)
+    return (hidden @ _head_matrix(cfg, params)).to(F32)
 
 
 def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
@@ -329,11 +362,16 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
     chunk = min(CE_CHUNK, S)
     if S % chunk:
         raise ValueError(f"seq len {S} is not a multiple of {chunk}")
-    W = _head_matrix(params)
+    W = _head_matrix(cfg, params)
     if perturb is not None:
         # tied head reads embed/tok through a transpose: trans counters
-        # with the stored row length keep z identical to the axpy's
-        head = perturb.leaf("embed/tok")
+        # with the stored row length keep z identical to the axpy's; the
+        # untied head/w (D, V) is read as stored (ld = V)
+        if cfg.tie_embeddings:
+            head, head_kw = perturb.leaf("embed/tok"), {"trans": True,
+                                                        "ld": cfg.d_model}
+        else:
+            head, head_kw = perturb.leaf("head/w"), {}
     tot = torch.zeros((), dtype=F32, device=hidden.device)
     cnt = torch.zeros((), dtype=F32, device=hidden.device)
     labels = labels.to(torch.int64)
@@ -344,7 +382,7 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
         if perturb is None:
             lg = (h @ W).to(F32)                          # (B, chunk, V)
         else:
-            lg = head.matmul(h, W, trans=True, ld=cfg.d_model).to(F32)
+            lg = head.matmul(h, W, **head_kw).to(F32)
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, y[..., None])[..., 0]
         tot = tot + torch.sum((lse - gold) * m)
@@ -354,13 +392,15 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
 
 def lm_loss(cfg: ModelConfig, params: LM, batch, perturb=None, *,
             grad: bool = False):
-    """batch: {tokens (B,S), labels (B,S), loss_mask (B,S)} tensors.
+    """batch: {tokens (B,S), labels (B,S), loss_mask (B,S)} tensors, or
+    {embeds (B,S,D), labels, loss_mask} for stub-frontend archs.
     ``perturb``: evaluate loss(theta + s*eps*z) virtually; a paired ctx
     returns the (P,) loss vector ``[l_plus, l_minus]``.  ``grad=True``
     records the graph for a backward (first-order training); otherwise
     the loss runs under no-grad."""
     with torch.set_grad_enabled(grad):
-        hidden = forward(cfg, params, batch["tokens"], perturb=perturb)
+        hidden = forward(cfg, params, batch.get("tokens"), perturb=perturb,
+                         embeds=batch.get("embeds"))
         return chunked_ce(cfg, params, hidden, batch["labels"],
                           batch["loss_mask"], perturb=perturb)
 
@@ -416,7 +456,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_seq: int):
 def supports_paged(cfg: ModelConfig) -> bool:
     """True when every mixer is attn and the model reads tokens — the
     block family the paged serving engine covers (DESIGN.md §12)."""
-    return (cfg.frontend == "none"
+    return (not frontends.uses_embeds(cfg)
             and all(b.kind == "attn" for s in cfg.stages for b in s.pattern))
 
 

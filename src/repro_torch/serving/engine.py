@@ -85,8 +85,9 @@ class Engine:
         if not lm.supports_paged(cfg):
             kinds = sorted({b.kind for s in cfg.stages for b in s.pattern})
             raise EngineUnsupported(
-                f"{cfg.name}: paged serving covers attn mixers only, "
-                f"got {kinds}; use the lockstep serve path")
+                f"{cfg.name}: paged serving covers attn mixers reading "
+                f"tokens only, got {kinds} with frontend "
+                f"{cfg.frontend!r}; use the lockstep serve path")
         self.device = resolve_device(device)
         held = params["embed"]["tok"].device
         if held.type != self.device.type:

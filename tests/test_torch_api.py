@@ -31,10 +31,10 @@ def test_preset_json_identical(name):
 
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
-    ({"model.arch": "deepseek-coder-33b"}, "model.arch"),
+    ({"model.arch": "deepseek-v2-lite-16b"}, "model.arch"),
     ({"model.arch": "granite-moe-1b-a400m"}, "model.arch"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
-    ({"model.arch": "qwen3-14b"}, "model.arch"),
+    ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_unported_fields_raise(override, path):
     spec = tapi.with_overrides(tapi.preset("lezo-opt13b"), override)

@@ -122,6 +122,8 @@ def test_flash_kernel(dev, q_offset, k_offset, Sk, G, dh):
     (2, 130, 130, 2, 1, 64, 0, 0, True),     # 3 query and 3 key tiles
     (2, 45, 100, 2, 1, 128, 0, 0, False),    # non-causal, 2 key tiles
     (2, 63, 63, 3, 2, 128, 0, 0, True),      # GQA, G = 2 at dh = 128
+    (2, 63, 63, 8, 5, 128, 0, 0, True),      # Qwen3-14B's G = 5
+    (2, 63, 63, 8, 7, 128, 0, 0, True),      # deepseek-coder-33b's G = 7
     (4, 1, 63, 2, 1, 128, 62, 0, True),      # one query at position 62
     (2, 37, 50, 2, 1, 32, 0, 40, True),      # no row sees a key: out = 0
 ])
@@ -171,6 +173,28 @@ def test_pmatmul_kernels(dev, M, K, N, trans, route):
                                got[p].view(torch.int16))
     assert {k: c.launches for k, c in fmm.route_counters.items()} == {
         "tma": 9 * (route == "tma"), "thread": 9 * (route == "thread")}
+
+
+@pytest.mark.parametrize("V,route", [(1001, "thread"), (1024, "tma")])
+def test_pmatmul_untied_head(dev, V, route):
+    """K4 on an untied head/w (D, V) read as stored (``trans=False``,
+    ``ld = V``): an odd vocabulary's row pitch is not 16-byte aligned, so
+    W takes per-thread loads; z equals the update sweep's z of head/w."""
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=dev).manual_seed(4)
+    D = 256
+    h = torch.randn((3, 21, D), generator=g, device=dev).bfloat16()
+    w = (torch.randn((D, V), generator=g, device=dev) * D ** -0.5).bfloat16()
+    seed = fref.layer_seed(31, "head/w", 0)
+    for c in fmm.route_counters.values():
+        c.launches = 0
+    got = fmm.pmatmul(h, w, seed, 0.05, True)
+    assert {k: c.launches for k, c in fmm.route_counters.items()} == {
+        "tma": int(route == "tma"), "thread": int(route == "thread")}
+    _close(got, fref.pmatmul(h, w, seed, 0.05, True))
+    wp = kops.zo_axpy_(w.float().clone(), path="head/w", seed=31,
+                       scale=0.05)
+    _close(got, (h.float() @ wp.bfloat16().float()).bfloat16())
 
 
 def test_small_model_pair_loss_matches_cpu(dev):

@@ -8,9 +8,11 @@ logits (O(1)) and the caches and arena they write within 1e-5, as the
 two frameworks sum in different orders through two layers.
 Greedy tokens are compared exactly: the port's engine and lockstep
 against the reference engine's and lockstep's, and, inside the port,
-engine = lockstep, sharing on = off and preempt = no preempt.  The
-reference's rope-arch engine case has no counterpart: the port has no
-rope model yet.
+engine = lockstep, sharing on = off and preempt = no preempt.  The rope
+archs (``internlm2-1.8b``/``smoke``: GQA, rope; ``qwen3-14b``/``smoke``:
+qk-norm too) are held the same way, with per-lane rope positions in
+``paged_step``; stub-frontend archs are refused by the engine and the
+CLI, through the registry.
 """
 import jax
 import jax.numpy as jnp
@@ -463,3 +465,147 @@ def test_cli_serve_on_the_cpu(engine, capsys):
         assert result["engine"]["compiles"] == 2
     assert "tok/s" in capsys.readouterr().out
 
+
+# ------------------------------------------------------------- rope archs
+_ROPE = {}
+
+
+def _rope_smoke(arch):
+    """(jax cfg, port cfg, jax params, port params) of a rope arch's
+    smoke variant, built once."""
+    if arch not in _ROPE:
+        jc, tc = jconfigs.get(arch, "smoke"), tconfigs.get(arch, "smoke")
+        jp = jlm.init_params(jc, jax.random.PRNGKey(1))
+        flat = {jzo._path_str(p): np.asarray(v)
+                for p, v in jax.tree_util.tree_leaves_with_path(jp)}
+        _ROPE[arch] = (jc, tc, jp, tlm.params_from_numpy(tc, flat, "cpu"))
+    return _ROPE[arch]
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-14b"])
+def test_rope_prefill_decode_and_paged_step_match_reference(arch):
+    """Lockstep prefill then decode at ``pos`` (rope at the same integer
+    positions as train mode), and a paged decode bucket with lanes at
+    different positions: logits and caches within the module's
+    tolerances."""
+    jc, tc, jp, tp = _rope_smoke(arch)
+    r = np.random.default_rng(5)
+    toks = r.integers(0, jc.vocab, (2, 9))
+    jl, jcache = jlm.prefill(jc, jp, jnp.asarray(toks, jnp.int32), 16)
+    tl, tcache = tlm.prefill(tc, tp, torch.tensor(toks), 16)
+    _close(_np(tl), jl, LOGIT_TOL)
+    _tree_close(tcache, jcache, CACHE_TOL)
+    for i in range(2):
+        tok = np.asarray(jnp.argmax(jl, -1))[:, None]
+        jl, jcache = jlm.serve_step(jc, jp, jcache,
+                                    jnp.asarray(tok, jnp.int32),
+                                    jnp.int32(9 + i))
+        tl, tcache = tlm.serve_step(tc, tp, tcache, torch.tensor(tok), 9 + i)
+        _close(_np(tl), jl, LOGIT_TOL)
+        _tree_close(tcache, jcache, CACHE_TOL)
+    n_pages, psz, KV, dh = 16, 4, jc.n_kv_heads, jc.head_dim
+    arena_np = {"s0": {"b0": {
+        k: r.standard_normal((jc.stages[0].repeat, n_pages, psz, KV, dh)
+                             ).astype(np.float32) for k in ("k", "v")}}}
+    for k in ("k", "v"):
+        arena_np["s0"]["b0"][k][:, 0] = 0.0      # the trash page
+    pages = np.array([[5, 2, 9, 0, 0, 0], [1, 3, 4, 7, 8, 0]], np.int32)
+    pos = np.array([9, 17], np.int32)
+    toks = r.integers(0, jc.vocab, (2, 1))
+    sel = np.zeros((2,), np.int32)
+    jlog, jarena = jlm.paged_step(
+        jc, jp, jax.tree.map(jnp.asarray, arena_np),
+        jnp.asarray(toks, jnp.int32), jnp.asarray(pages), jnp.asarray(pos),
+        jnp.asarray(sel))
+    i64 = lambda a: torch.tensor(a, dtype=torch.int64)
+    tlog, tarena = tlm.paged_step(
+        tc, tp, jax.tree.map(lambda a: torch.tensor(np.array(a)), arena_np),
+        i64(toks), i64(pages), i64(pos), i64(sel))
+    _close(_np(tlog), jlog, LOGIT_TOL)
+    _tree_close(tarena, jarena, CACHE_TOL)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-14b"])
+def test_rope_engine_greedy_tokens_equal_reference(arch):
+    """The port's engine gives the reference engine's greedy tokens and
+    the port's lockstep the reference lockstep's, on a rope arch."""
+    jc, tc, jp, tp = _rope_smoke(arch)
+    reqs = _five(jc.vocab)
+    want = {r.rid: r.tokens for r in jsv.Engine(jc, jp, _serving(japi)).run(
+        [jsv.Request(**q) for q in reqs])}
+    eng = _engine(tc, tp)
+    got = {r.rid: r.tokens for r in eng.run(
+        [tsv.Request(**q) for q in reqs])}
+    assert got == want
+    for q in reqs[:2]:
+        jls = np.asarray(jserve.generate(
+            jc, jp, jnp.asarray([q["tokens"]], jnp.int32),
+            q["max_new_tokens"], max_seq=64))[0].tolist()
+        assert _lockstep(tc, tp, q["tokens"], q["max_new_tokens"]) == jls
+    assert eng.pool.in_use == 0
+
+
+def test_engine_bit_identical_on_rope_arch():
+    """The reference's ``test_engine_bit_identical_on_rope_arch``: every
+    request's engine tokens equal the port's own lockstep path, on
+    ``internlm2-1.8b``/``smoke``."""
+    _, tc, _, tp = _rope_smoke("internlm2-1.8b")
+    rng = np.random.default_rng(1)
+    reqs = [tsv.Request(rid=i, tokens=rng.integers(0, tc.vocab, n).tolist(),
+                        max_new_tokens=g, seed=i)
+            for i, (n, g) in enumerate([(13, 5), (7, 4), (21, 3)])]
+    for r in _engine(tc, tp).run(reqs):
+        req = reqs[r.rid]
+        assert r.tokens == _lockstep(tc, tp, req.tokens,
+                                     req.max_new_tokens), r.rid
+
+
+def test_rope_engine_sharing_and_preemption_bit_identical():
+    """On a rope arch: prefix sharing (with a COW copy) and a preempted
+    and resumed request give the tokens of sharing off, uncontended."""
+    _, tc, _, tp = _rope_smoke("qwen3-14b")
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, tc.vocab, 12).tolist()
+    tails = [rng.integers(0, tc.vocab, int(rng.integers(1, 9))).tolist()
+             for _ in range(4)]
+    mk = lambda: [tsv.Request(rid=i, tokens=system + tails[i],
+                              max_new_tokens=4, seed=i) for i in range(4)]
+    off = {r.rid: r.tokens for r in _engine(tc, tp).run(mk())}
+    eng = _engine(tc, tp, prefix_cache=True)
+    assert {r.rid: r.tokens for r in eng.run(mk())} == off
+    assert eng.sched.page_hit_rate > 0.0 and eng.sched.cow_copies > 0
+    kw = dict(max_lanes=1, n_pages=8, priorities=2, preempt=True,
+              max_seq=32)
+    lo = lambda: tsv.Request(rid=0, tokens=tails[0] + system[:4],
+                             max_new_tokens=6)
+    hi = lambda: tsv.Request(rid=1, tokens=tails[1], max_new_tokens=3,
+                             priority=1)
+    solo = {0: _engine(tc, tp, **kw).run([lo()])[0].tokens,
+            1: _engine(tc, tp, **kw).run([hi()])[0].tokens}
+    eng = _engine(tc, tp, **kw)
+    eng.submit(lo())
+    while not (eng.sched.decoding()
+               and eng.sched.lanes[eng.sched.decoding()[0]].out):
+        eng.step()
+    eng.submit(hi())
+    assert {r.rid: r.tokens for r in eng.run([])} == solo
+    assert eng.sched.preemptions == 1
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-2b"])
+def test_stub_frontends_refused_through_the_registry(arch, capsys):
+    """``EngineUnsupported`` for a stub-frontend arch from the registry,
+    as the reference's engine; the CLI refuses both serve paths."""
+    cfg = tconfigs.get(arch, "smoke")
+    assert not tlm.supports_paged(cfg)
+    assert tlm.supports_paged(cfg) == jlm.supports_paged(
+        jconfigs.get(arch, "smoke"))
+    tp = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(tsv.EngineUnsupported, match="lockstep"):
+        tsv.Engine(cfg, tp, tapi.Serving(), device="cpu")
+    for engine, msg in (("paged", "paged engine"),
+                        ("lockstep", "stub embeddings"),
+                        ("auto", "stub embeddings")):
+        with pytest.raises(SystemExit, match=msg):
+            tcli.main(["serve", "--arch", arch, "--variant", "smoke",
+                       "--device", "cpu", "--engine", engine])
