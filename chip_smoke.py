@@ -102,7 +102,10 @@ when it fails:
              2 shapes run and the pool empty after; 4 requests against
              ``generate`` at batch 1 (first-token logits within
              ``SERVE_LOGIT_STEPS`` bf16 steps; streams equal or parting at
-             a near-tie); the plain serving operations' times; a
+             a near-tie), each prompt's lockstep prefill also run through
+             K2's plain version as a diagnostic (the engine's first-token
+             gap against both lockstep runs, theirs to each other, not
+             gated); the plain serving operations' times; a
              ``torch.profiler`` profile of one steady decode step and the
              idle share over 10.
 14. zoo    — the dense model zoo, once this process holds no OPT-13B
@@ -131,15 +134,38 @@ when it fails:
              stub embeddings), and deepseek-coder-33b at full width and
              depth (2 steps, peak memory): finite losses and launches as
              reckoned.
-15. fo     — K2's backward against autograd through its plain version at
+15. moe    — the zoo's MoE and MLA configs, once no earlier weights are
+             held.  K2 at MLA's dh = 192 (q (16, 63, 16, 1, 192), v
+             zero-padded from 128: pad columns exact zeros) and at
+             granite-moe's (16, 63, 8, 2, 64), SDPA beside; K1 on a
+             layer's row of deepseek's ``we_g`` (184.5 M elements) and
+             on its float32 router stack (the ``moe_shapes`` rows).
+             Then deepseek-v2-lite-16b and granite-moe-1b-a400m at full
+             width and depth, ``lezo-opt13b`` materialized: 4 steps
+             twice from the seed (launches as ``expected_launches``
+             reckons: K1 a leaf a sweep, K2 a layer a forward; the two
+             runs' losses, projected gradients and parameter digests
+             bit-equal), 2 + 10 steady steps, the idle share over 10, a
+             profiled step with device time by op.  deepseek serves
+             through the lockstep ``generate`` (4, 1024) + 32 (the
+             engine must refuse MLA; K2 27 launches at dh = 192, held
+             against its plain version and SDPA on the last layer's
+             inputs; the absorbed decode step timed and profiled);
+             granite through the engine over 8 requests (4 sharing the
+             prefix, the last 4 after 8 steps) at the published
+             capacity factor (dropped assignments and the first-token
+             gap to the lockstep read, not gated) and dropless at 4.0
+             (no drop; ``prefix_cache`` bit-equal with pages shared;
+             ``serve``'s engine-against-lockstep gate).
+16. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-16. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+17. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
-17. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+18. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
              this process holds no 13B weights.  First K1-K4 against
              their plain versions at the shapes one worker's loss shard
              gives them (the ``swarm_shapes`` rows of the kernels line).
@@ -303,14 +329,32 @@ def phase_build():
     log(f"[build] K1 SASS: {k1['per_element']} instructions an element "
         f"(by pipe {k1['by_pipe']}) against {K1_OPS} operations the "
         "function needs")
-    hmma = sass.count_ops(sass.disassemble(str(_build._target(
-        "flash_attn"))), "flash_fwd_kernelILi128", "HMMA")
-    log(f"[build] K2 SASS: flash_fwd_kernel<128> holds {hmma} HMMA "
-        "(tensor-core) instructions")
-    if hmma == 0:
-        raise SystemExit("build: flash_fwd_kernel<128> runs no tensor-core "
-                         "instruction")
+    k2_sass = sass.disassemble(str(_build._target("flash_attn")))
+    for dh in (128, 192):
+        hmma = sass.count_ops(k2_sass, f"flash_fwd_kernelILi{dh}", "HMMA")
+        log(f"[build] K2 SASS: flash_fwd_kernel<{dh}> holds {hmma} HMMA "
+            "(tensor-core) instructions")
+        if hmma == 0:
+            raise SystemExit(f"build: flash_fwd_kernel<{dh}> runs no "
+                             "tensor-core instruction")
+    for fn, regs in ptxas_registers(reports.get("flash_attn", "")).items():
+        log(f"[build] K2 {fn}: {regs}")
     return k1["per_element"]
+
+
+def ptxas_registers(report):
+    """``ptxas -v`` lines of each entry function of a build report:
+    {demangled-ish name: "N registers, S bytes spill stores, ..."}."""
+    import re
+    out, fn = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"flash_fwd_kernelILi(\d+)E", m.group(1))
+            fn = f"flash_fwd_kernel<{k.group(1)}>" if k else m.group(1)
+        elif fn and ("registers" in ln or "spill" in ln):
+            out[fn] = (out.get(fn, "") + "; " + ln.strip()).lstrip("; ")
+    return out
 
 
 def phase_rng():
@@ -883,10 +927,11 @@ def step_fn(spec, cfg, params):
     return lambda t: step(params, init(), batch, t, base)
 
 
-def phase_profile(spec, cfg, params, tag="profile"):
+def phase_profile(spec, cfg, params, tag="profile", ops=False):
     """One more step of ``spec`` (the main path's by default) under
     ``torch.profiler``: device time by kernel and the device's idle
-    share of the step's wall time."""
+    share of the step's wall time; with ``ops``, also the aten ops by
+    the device time of the kernels they launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -899,13 +944,17 @@ def phase_profile(spec, cfg, params, tag="profile"):
         run(spec.run.steps + 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    dev_us = {}                      # device kernels only: an aten op's
+    dev_us, op_us = {}, {}           # device kernels only: an aten op's
     for e in prof.key_averages():    # row repeats its kernels' time
         if str(e.device_type).endswith("CUDA"):
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             dev_us[e.key] = (us, e.count)
+        elif e.key.startswith("aten::"):
+            us = getattr(e, "device_time_total", None)
+            op_us[e.key] = (e.cuda_time_total if us is None else us,
+                            e.count)
     busy = sum(us for us, _ in dev_us.values()) / 1e6
     log(f"[{tag}] step wall {wall:.3f} s, device busy {busy:.3f} s, "
         f"idle share {max(0.0, 1 - busy / wall):.3f}")
@@ -918,6 +967,12 @@ def phase_profile(spec, cfg, params, tag="profile"):
             if name in key and n:
                 log(f"[{tag}] per launch: {us / n / 1e3:.4f} ms over {n} "
                     f"x {key[:70]}")
+    if ops:
+        for key, (us, n) in sorted(op_us.items(),
+                                   key=lambda kv: -kv[1][0])[:16]:
+            log(f"[{tag}] op {us / 1e3:9.3f} ms {n:6d} x  {key} (device "
+                "time of its kernels, nested ops included)")
+    return wall, busy
 
 
 def expected_launches(spec, params, steps, cfg=None):
@@ -927,7 +982,8 @@ def expected_launches(spec, params, steps, cfg=None):
     (``fmm.model_matmuls``: 6, or 7 with SwiGLU) and, for stacked
     one_sided probes, K3's probe groups of each layer's active probes
     (``fmm.probe_groups``).  ZO modes here run virtual and paired,
-    momentum materialized.  A swarm spec's sharded step runs the paired
+    momentum and the MoE/MLA archs materialized (one K1 launch a leaf a
+    sweep, one K2 launch a layer a forward).  A swarm spec's sharded step runs the paired
     probe forward once a loss shard and one commit sweep."""
     from repro_torch import api, estimators
     from repro_torch.api.validate import swarm_active, swarm_shards
@@ -953,6 +1009,11 @@ def expected_launches(spec, params, steps, cfg=None):
         if mode == "zo_momentum":   # probe, -2 eps, restore, t + 1 <= K
             n["zo_axpy_2d"] += leaves * (3 + min(8, t + 1))
             n["flash_attention"] += 2 * L
+            continue
+        if e.forward_backend == "materialized":   # K1 a leaf a sweep
+            c = estimators.build_estimator(zspec, e).step_counts()
+            n["zo_axpy_2d"] += leaves * c["axpy_sweeps"]
+            n["flash_attention"] += L * c["forwards"]
             continue
         assert e.forward_backend == "virtual" and e.paired_probes
         est = estimators.build_estimator(zspec, e)
@@ -1393,16 +1454,23 @@ def serve_plain_ops(cfg, spec):
     return out
 
 
-def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check):
+def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check,
+                       gate=True, plain=False):
     """Requests ``check`` of an engine run (tokens ``base``, sampler rows
     ``tapped``) against ``generate`` at batch 1: first-token logits within
     ``SERVE_LOGIT_STEPS`` bf16 steps, and the streams equal or parting
-    at a near-tie (the lockstep's top-2 gap below max |dlogits|)."""
+    at a near-tie (the lockstep's top-2 gap below max |dlogits|);
+    ``gate=False`` reads the same without failing.  ``plain`` also runs
+    the lockstep prefill once more with K2's plain version called in the
+    model (a diagnostic, on no serving path) and prints the engine's
+    first-token gap against both lockstep runs and theirs to each
+    other.  Returns the worst gap, or with ``plain`` (worst, worst
+    against the plain lockstep, worst between the two lockstep runs)."""
     import torch
     from repro_torch.launch import serve as serve_mod
     gc.collect()
     torch.cuda.empty_cache()
-    worst = 0.0
+    worst = worst_plain = worst_k2 = 0.0
     for rid in check:
         prompt = reqs[rid][1]
         n = spec.serving.max_new_tokens
@@ -1413,8 +1481,21 @@ def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check):
         en_logits = tapped[(SEED_BASE + rid, len(prompt))]
         steps = bf16_steps(en_logits, ls_logits)
         worst = max(worst, steps)
-        close(en_logits, ls_logits, f"{tag}: rid {rid} first-token logits, "
-              "engine against lockstep", steps=SERVE_LOGIT_STEPS)
+        if plain:
+            with plain_k2():
+                pl_logits = lockstep_logits(cfg, params, prompt, 1)[0]
+            to_plain = bf16_steps(en_logits, pl_logits)
+            k2_plain = bf16_steps(ls_logits, pl_logits)
+            worst_plain = max(worst_plain, to_plain)
+            worst_k2 = max(worst_k2, k2_plain)
+            log(f"[{tag}] rid {rid} first-token logits: engine against the "
+                f"K2 lockstep {steps:.2f} bf16 steps, against the lockstep "
+                f"with K2's plain version {to_plain:.2f} (max|d| "
+                f"{(en_logits - pl_logits).abs().max().item():.3e}); the "
+                f"two lockstep runs {k2_plain:.2f} apart")
+        if gate:
+            close(en_logits, ls_logits, f"{tag}: rid {rid} first-token "
+                  "logits, engine against lockstep", steps=SERVE_LOGIT_STEPS)
         first = next((t for t in range(n) if ls[t] != base[rid][t]), None)
         msg = (f"[{tag}] rid {rid} (prompt {len(prompt)}): first-token "
                f"logits {steps:.2f} bf16 steps apart (max|d| "
@@ -1428,12 +1509,18 @@ def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check):
         delta = (enl - lsl).abs().max().item()
         log(msg + f"tokens differ first at step {first}: max|dlogits| "
             f"{delta:.4e}, lockstep top-2 gap {gap:.4e}")
-        if not gap < delta:
+        if gate and not gap < delta:
             raise SystemExit(f"{tag}: rid {rid} engine and lockstep differ "
                              f"at step {first} without a near-tie (gap "
                              f"{gap:.4e} >= max|dlogits| {delta:.4e})")
     log(f"[{tag}] engine against lockstep: worst first-token gap "
-        f"{worst:.2f} bf16 steps (gate {SERVE_LOGIT_STEPS})")
+        f"{worst:.2f} bf16 steps (gate "
+        f"{SERVE_LOGIT_STEPS if gate else 'none: a reading'})")
+    if plain:
+        log(f"[{tag}] engine against the lockstep with K2's plain version: "
+            f"worst {worst_plain:.2f} bf16 steps; K2's lockstep against "
+            f"the plain one: worst {worst_k2:.2f}")
+        return worst, worst_plain, worst_k2
     return worst
 
 
@@ -1672,8 +1759,14 @@ def phase_serve(hold, cfg):
         eng.pool.check_invariants()
         del eng
 
-    # engine against lockstep, 4 requests at batch 1
-    engine_vs_lockstep("serve", cfg, params, spec, reqs, base, tapped, check)
+    # engine against lockstep, 4 requests at batch 1, with the lockstep
+    # prefill also run through K2's plain version (a diagnostic: does the
+    # gap close when both paths run plain attention?)
+    gaps = engine_vs_lockstep("serve", cfg, params, spec, reqs, base,
+                              tapped, check, plain=True)
+    k2_row["engine_gap_bf16_steps"] = dict(zip(
+        ("to_k2_lockstep", "to_plain_lockstep", "k2_to_plain_lockstep"),
+        gaps))
     k2_row["plain_ops"] = plain_ops
     return [k2_row]
 
@@ -2046,6 +2139,340 @@ def phase_zoo(eps):
     del hist
     gc.collect()
     torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            r["launches"] = runs[r["run"]][name]
+    return rows
+
+
+# The moe phase: the zoo's MoE and MLA configs at full width and depth,
+# materialized (the reference's only backend for these blocks): K1 sweeps
+# over the 4-D expert stacks and the float32 router, K2 at MLA's dh = 192
+# (deepseek-v2-lite) and at granite-moe's GQA dh = 64, G = 2.
+MOE_ARCHS = ("deepseek-v2-lite-16b", "granite-moe-1b-a400m")
+MOE_MLA, MOE_GRANITE = MOE_ARCHS
+MOE_STEADY = 10                          # steady steps after TRACE_WARM
+MOE_DROPLESS = 4.0                       # the reference's dropless factor
+MOE_CHECK = (0, 1)                       # against lockstep at batch 1
+
+
+def moe_spec(arch, **over):
+    """The main path's spec on ``arch`` at full width and depth, on the
+    materialized forward backend."""
+    return zoo_spec(arch, **{"runtime.forward_backend": "materialized",
+                             **over})
+
+
+def params_digest(params):
+    """Per leaf, the int64 sum of its elements' bit patterns, one layer
+    row at a time: equal digests and equal scalars read as bit-equal
+    runs."""
+    import torch
+    from repro_torch.core import zo
+    out = {}
+    for path, t in zo.leaf_items(params):
+        bits = t.detach().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+        rows = bits if bits.dim() > 1 else bits[None]
+        out[path] = sum(int(r.sum(dtype=torch.int64)) for r in rows)
+    return out
+
+
+def moe_parity(ds, gr, eps):
+    """Each kernel the moe runs launch, against its plain version at
+    their shapes (batch 16, S = 63): K2 at MLA's dh = 192 with v
+    zero-padded from 128 (its pad columns must come out exact zeros;
+    SDPA at dh = 192 beside), K2 at granite's (16, 63, 8, 2, 64) (SDPA
+    with ``enable_gqa``), K1 on one layer's row of deepseek's ``we_g``
+    (64 x 2048 x 1408 bf16) and on its float32 router stack.  Returns
+    the ``moe_shapes`` rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import zo_axpy as kzo
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2121)
+    B, S = 16, 63
+    pairs = S * (S + 1) // 2
+    out = {"flash_attention": [], "zo_axpy_2d": []}
+    dn, dr, H = ds.head_dim, ds.rope_head_dim, ds.n_heads
+    for tag, KV, G, dh, pad in (
+            (MOE_MLA, H, 1, dn + dr, dr),
+            (MOE_GRANITE, gr.n_kv_heads, gr.n_heads // gr.n_kv_heads,
+             gr.head_dim, 0)):
+        q = torch.randn((B, S, KV, G, dh), generator=g, device=dev, dtype=bf)
+        k = torch.randn((B, S, KV, dh), generator=g, device=dev, dtype=bf)
+        v = torch.randn((B, S, KV, dh), generator=g, device=dev, dtype=bf)
+        if pad:
+            v[..., dh - pad:] = 0
+        got = kfa.flash_attention(q, k, v, causal=True)
+        err = close(got, kfa.flash_attention_plain(q, k, v, causal=True),
+                    f"flash_attention {tag} dh = {dh}")
+        if pad and got[..., dh - pad:].float().abs().max().item() != 0:
+            raise SystemExit(f"moe: K2 at dh = {dh} writes non-zero pad "
+                             "columns")
+        qs = q.reshape(B, S, KV * G, dh).transpose(1, 2).contiguous()
+        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        zoo_row(out, "flash_attention", f"{tag}: q {tuple(q.shape)}, "
+                f"dh = {dh}{', v padded from %d' % (dh - pad) if pad else ''}",
+                tag, lambda: kfa.flash_attention(q, k, v, causal=True),
+                lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=G > 1),
+                err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
+                flops=4.0 * B * KV * G * dh * pairs, plain_reps=2, reps=50)
+        del q, k, v, got, qs, ks, vs
+
+    # K1: one layer's row of we_g (bf16), then the float32 router stack
+    # with every row active
+    w_seed = 0xBEEF
+    L1 = ds.stages[1].repeat
+    for tag, shape, dt in (
+            ("we_g one layer's row", (1, ds.n_experts * ds.d_model
+                                      * ds.moe_d_ff), bf),
+            ("router, float32, all rows", (L1, ds.d_model * ds.n_experts),
+             torch.float32)):
+        theta = torch.randn(shape, generator=g, device=dev, dtype=dt) * 0.02
+        mask = torch.ones((shape[0],), dtype=torch.bool)
+        got, want = theta.clone(), theta.clone()
+        kzo.zo_axpy_2d_(got, mask, w_seed, -eps, 1.0)
+        kref.zo_axpy_2d_(want, mask, w_seed, -eps, 1.0)
+        if dt == bf:
+            ulps = bf16_ulps(got, want).max().item()
+            tol = f"<= 1 bf16 ulp (got {ulps})"
+            bad = ulps > 1
+        else:
+            rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max()
+            tol = f"rel <= 1e-6 (got {rel.item():.2e})"
+            bad = rel.item() > 1e-6
+        if bad:
+            raise SystemExit(f"zo_axpy_2d {tag}: {tol}")
+        err = (got.float() - want.float()).abs().max().item()
+        n = theta.numel()
+        del theta
+        zoo_row(out, "zo_axpy_2d", f"{MOE_MLA} {tag} {shape} "
+                f"{str(dt).split('.')[-1]}", MOE_MLA,
+                lambda: kzo.zo_axpy_2d_(got, mask, w_seed, -eps, 1.0),
+                lambda: kref.zo_axpy_2d_(want, mask, w_seed, -eps, 1.0),
+                None, err, tol, n * got.element_size() * 2,
+                insns=n * K1_OPS, reps=10)
+        del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train(arch):
+    """``lezo-opt13b`` on ``arch`` at full width and depth, materialized:
+    4 steps from the seed twice (launches as ``expected_launches``
+    reckons, finite losses; the two runs' losses, projected gradients
+    and final parameters bit-equal), then 2 + 10 steady steps, the idle
+    share over 10 and a profiled step with device time by op.  Returns
+    (spec, cfg, params, launches of the first run)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.models import lm
+
+    spec = moe_spec(arch)
+    cfg = api.derive(spec).model_cfg
+    seen = []
+    for run in ("", " again"):
+        hist, launches, peak = run_counted(f"moe {arch}{run}", spec)
+        params = hist["final_params"]
+        want = expected_launches(spec, params, spec.run.steps, cfg=cfg)
+        if launches != want:
+            raise SystemExit(f"moe {arch}: launches {launches} != expected "
+                             f"{want}")
+        seen.append((hist["loss"], hist["projected_grad"],
+                     params_digest(params)))
+        if not run:
+            first = launches
+            log(f"[moe] {arch}: {lm.count_params(params) / 1e9:.3f} B "
+                f"parameters, {lm.count_active_params(cfg, params) / 1e9:.3f}"
+                f" B active a token; peak {peak:.2f} GiB")
+            del hist, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    if seen[0] != seen[1]:
+        raise SystemExit(f"moe {arch}: two runs from the seed differ "
+                         f"(losses {seen[0][0]} vs {seen[1][0]})")
+    log(f"[moe] {arch}: the second run from the seed is bit-equal "
+        f"(losses, projected gradients, {len(seen[0][2])} leaves)")
+    del hist
+
+    steady = api.with_overrides(spec, {"run.steps": TRACE_WARM + MOE_STEADY})
+    hist, n, peak = run_counted(f"moe {arch} steady", steady, params)
+    check_launches(f"moe {arch} steady", steady, params, n)
+    secs = hist["step_seconds"][TRACE_WARM:]
+    del hist
+    busy, wall, idle = device_idle_share(spec, cfg, params, MOE_STEADY)
+    log(f"[moe] {arch} {MOE_STEADY} steady steps: step_seconds "
+        f"{stats(secs)}; peak memory {peak:.2f} GiB; torch.profiler: wall "
+        f"{wall:.4f} s, device busy {busy:.4f} s, idle share {idle:.4f}")
+    phase_profile(spec, cfg, params, tag=f"moe {arch} profile", ops=True)
+    return spec, cfg, params, first
+
+
+def moe_serve_mla(cfg, params, spec, rows):
+    """deepseek-v2-lite through the lockstep ``generate`` (the engine
+    refuses MLA): (4, 1024) + 32, K2 launched once a layer by the
+    prefill at dh = 192 and held against its plain version and SDPA on
+    the last layer's inputs (a ``moe_shapes`` row); the absorbed decode
+    step over the latent cache, timed and profiled."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import serving
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+
+    try:
+        serving.Engine(cfg, params, spec.serving, device="cuda")
+        raise SystemExit("moe: the engine accepted an MLA model")
+    except serving.EngineUnsupported:
+        pass
+    gen = torch.Generator(device="cpu").manual_seed(spec.run.seed)
+    Bl, Sl, Gl = SERVE_LOCKSTEP
+    toks = torch.randint(0, cfg.vocab, (Bl, Sl), generator=gen).cuda()
+    last = {}
+
+    def capture(q, k, v, **kw):
+        last.update(q=q, k=k, v=v, kw=kw)
+        return kernel(q, k, v, **kw)
+    kernel = kfa.flash_attention
+    with swap_k2(capture):
+        out, n, peak, wall = counted(lambda: serve_mod.generate(
+            cfg, params, toks, Gl, max_seq=Sl + Gl + 1))
+    log(f"[moe] {MOE_MLA} lockstep generate ({Bl}, {Sl}) + {Gl}: "
+        f"{wall:.3f} s, {Bl * Gl / wall:.1f} tok/s, peak {peak:.2f} GiB, "
+        f"launches {n}")
+    if n != {"zo_axpy_2d": 0, "flash_attention": cfg.num_layers,
+             "pmatmul_stack": 0, "pmatmul": 0} or tuple(out.shape) != (
+                 Bl, Gl) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise SystemExit(f"moe: lockstep launches {n} or tokens "
+                         f"{tuple(out.shape)}")
+    q, k, v, kw = last["q"], last["k"], last["v"], last["kw"]
+    got = kfa.flash_attention(q, k, v, **kw)
+    err = close(got, kfa.flash_attention_plain(q, k, v, **kw),
+                f"flash_attention {MOE_MLA} lockstep prefill")
+    dn = cfg.head_dim
+    if got[..., dn:].float().abs().max().item() != 0:
+        raise SystemExit("moe: K2's pad columns in the prefill are not 0")
+    H, dh = q.shape[2], q.shape[-1]
+    qs, ks, vs = (t.reshape(Bl, Sl, H, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    zoo_row(rows, "flash_attention", f"{MOE_MLA} lockstep prefill "
+            f"{tuple(q.shape)}, the last layer's inputs", "lockstep_mla",
+            lambda: kfa.flash_attention(q, k, v, **kw),
+            lambda: kfa.flash_attention_plain(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
+            flops=4.0 * Bl * H * dh * (Sl * (Sl + 1) // 2))
+    del q, k, v, got, qs, ks, vs, last, out
+    logits, caches = lm.prefill(cfg, params, toks, max_seq=Sl + Gl + 1)
+    tok = torch.argmax(logits, -1)[:, None]
+    step = lambda: lm.serve_step(cfg, params, caches, tok, Sl)
+    ms = time_ms(step, reps=5)
+    log(f"[moe] {MOE_MLA} absorbed decode step ({Bl} lanes at {Sl}, latent "
+        f"cache {Sl + Gl + 1} slots): {ms:.2f} ms on the card's clock")
+    profile_one(f"moe {MOE_MLA}", step, f"one absorbed decode step ({Bl} "
+                f"lanes at {Sl})")
+    del logits, caches, tok, toks
+    return {"lockstep_mla": n}
+
+
+def moe_serve_engine(cfg, params, spec):
+    """granite-moe through the paged engine over 8 requests (4 sharing a
+    512-token prefix; the last 4 arrive after 8 steps, so those can find
+    the prefix registered): at the published capacity factor, the dropped
+    assignments and the engine-vs-lockstep first-token gap, read and
+    not gated (chunking changes the drops by design); then dropless
+    (capacity_factor 4.0): sharing on bit-equal to off, pages shared,
+    and the engine against the lockstep under ``serve``'s gate."""
+    import torch
+    from repro_torch import api, serving
+    from repro_torch.models import moe
+
+    sv = api.with_overrides(spec, SERVE_OVERRIDES)
+    api.validate(sv)
+    reqs = serve_requests(cfg.vocab, seed=sv.run.seed, n=ZOO_REQUESTS,
+                          shared=ZOO_SHARED)
+    mk = lambda: [serving.Request(rid=rid, tokens=t, seed=SEED_BASE + rid)
+                  for rid, t in reqs]
+    dispatch, drops = moe.dispatch, []
+
+    def tap(*a):
+        out = dispatch(*a)
+        drops.append((~out[2]).sum())
+        return out
+    for cf in (cfg.capacity_factor, MOE_DROPLESS):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        eng = serve_engine(c, params, sv)
+        tapped = tap_sampler(eng, {SEED_BASE + r for r in MOE_CHECK})
+        drops.clear()
+        moe.dispatch = tap
+        try:
+            (base, results, wall), n, _, _ = counted(lambda: drain(
+                eng, mk()[:-ZOO_LATE], late=mk()[-ZOO_LATE:],
+                after=ZOO_AFTER))
+        finally:
+            moe.dispatch = dispatch
+        dropped = int(sum(d.item() for d in drops))
+        n_tok = sum(len(t) for t in base.values())
+        log(f"[moe] {MOE_GRANITE} engine at capacity_factor {cf}: "
+            f"{len(results)} requests, {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} tok/s; {eng.n_prefill_calls} prefill calls, "
+            f"{eng.n_decode_steps} decode steps; {dropped} assignments "
+            f"dropped over {len(drops)} MoE calls; launches {n}")
+        if (sorted(base) != list(range(ZOO_REQUESTS)) or eng.pool.in_use
+                or any(n.values()) or eng.n_compiles() != 2):
+            raise SystemExit(f"moe: engine results {sorted(base)}, "
+                             f"{eng.pool.in_use} pages left, launches {n}")
+        tapped = tapped()
+        del eng
+        if cf == MOE_DROPLESS and dropped:
+            raise SystemExit(f"moe: {dropped} drops at the dropless factor")
+        if cf != MOE_DROPLESS:
+            engine_vs_lockstep(f"moe {MOE_GRANITE} cf {cf}", c, params, sv,
+                               reqs, base, tapped, MOE_CHECK, gate=False)
+            continue
+        on = api.with_overrides(sv, {"serving.prefix_cache": True})
+        eng = serve_engine(c, params, on)
+        got, _, wall = drain(eng, mk()[:-ZOO_LATE], late=mk()[-ZOO_LATE:],
+                             after=ZOO_AFTER)
+        log(f"[moe] {MOE_GRANITE} dropless engine prefix_cache: "
+            f"{wall:.3f} s, page hit rate {eng.sched.page_hit_rate:.3f}")
+        diff = sorted(r for r in base if got.get(r) != base[r])
+        if diff or not eng.sched.page_hit_rate > 0:
+            raise SystemExit(f"moe: dropless prefix_cache tokens differ "
+                             f"for rids {diff} or no page shared")
+        del eng
+        engine_vs_lockstep(f"moe {MOE_GRANITE} dropless", c, params, sv,
+                           reqs, base, tapped, MOE_CHECK)
+    torch.cuda.empty_cache()
+
+
+def phase_moe(eps):
+    """The zoo's MoE and MLA configs on the card (see the module
+    docstring); returns the ``moe_shapes`` rows by kernel, each carrying
+    the kernel's launches in the run that exercises its shape."""
+    import torch
+    from repro_torch import configs
+
+    ds, gr = configs.get(MOE_MLA), configs.get(MOE_GRANITE)
+    rows = moe_parity(ds, gr, eps)
+    runs = {}
+    for arch in MOE_ARCHS:
+        spec, cfg, params, runs[arch] = moe_train(arch)
+        if arch == MOE_MLA:
+            runs.update(moe_serve_mla(cfg, params, spec, rows))
+        else:
+            moe_serve_engine(cfg, params, spec)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
             r["launches"] = runs[r["run"]][name]
@@ -2755,7 +3182,7 @@ SOURCES = {
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
           "replay", "estimators", "momentum", "tasks", "peft", "serve", "zoo",
-          "fo", "resume", "swarm")
+          "moe", "fo", "resume", "swarm")
 
 
 def main() -> int:
@@ -2826,6 +3253,9 @@ def main() -> int:
     if "zoo" in phases:
         for name, shapes in phase_zoo(spec.optimizer.eps).items():
             rows.setdefault(name, {})["zoo_shapes"] = shapes
+    if "moe" in phases:
+        for name, shapes in phase_moe(spec.optimizer.eps).items():
+            rows.setdefault(name, {})["moe_shapes"] = shapes
     if "fo" in phases:
         phase_fo(cfg)
     if "resume" in phases:

@@ -76,6 +76,8 @@ def _summary(spec: Experiment, trainer, hist: Dict) -> Dict:
         "metric": hist.get("metric_name", "val_loss"),
         "n_layers": d.model_cfg.num_layers, "n_drop": d.n_drop,
         "n_params": lm.count_params(trainer.base_params),
+        "n_active_params": lm.count_active_params(d.model_cfg,
+                                                  trainer.base_params),
         "final_loss": hist["loss"][-1] if hist["loss"] else None,
         "val_loss": hist["val_loss"], "val_acc": hist["val_acc"],
         "best_step": hist.get("best_step"),

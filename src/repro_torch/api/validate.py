@@ -1,8 +1,9 @@
 """Spec validation of the port (counterpart of ``repro/api/validate.py``).
 
-Accepts what the port runs: training and evaluation of OPT and the dense
-model zoo (every ``attn + dense`` config) on the synthetic task or a
-registry task, single process, in every
+Accepts what the port runs: training and evaluation of OPT and the
+model zoo's ``attn``/``mla`` + ``dense``/``moe`` configs (MLA and MoE
+blocks on the materialized forward backend only, as in the reference)
+on the synthetic task or a registry task, single process, in every
 optimizer mode (``zo`` with any estimator, ``zo_momentum``, ``fo``),
 over the full model or a PEFT tree (LoRA, prefix), any axpy backend, any
 forward backend, the loss-shard quorum and checkpoint/resume, under the
@@ -143,7 +144,8 @@ def validate(spec: Experiment):
         bad = virtual_block_errors(mcfg)
         _require(not bad, "runtime.forward_backend",
                  "'virtual' covers attn + dense blocks; "
-                 f"model.arch={m.arch!r} has {bad}")
+                 f"model.arch={m.arch!r} has {bad} (use "
+                 "forward_backend='materialized')")
 
     # serving engine node (DESIGN.md §12): the pool/bucket arithmetic
     # must close before any arena is allocated

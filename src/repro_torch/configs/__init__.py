@@ -1,12 +1,15 @@
-"""Architecture registry of the port: the OPT entries and the dense
-``attn + dense`` model zoo of ``repro/configs/__init__.py``.  The MoE,
-MLA and SSM architectures are not yet ported; ``api/validate.py`` names
-them so."""
+"""Architecture registry of the port: the OPT entries, the dense
+``attn + dense`` model zoo and its MoE/MLA configs (granite-moe,
+deepseek-v2-lite) of ``repro/configs/__init__.py``.  The SSM
+architectures (jamba, xlstm) are not yet ported; ``api/validate.py``
+names them so."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = {
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "internlm2-1.8b": "internlm2_1_8b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",

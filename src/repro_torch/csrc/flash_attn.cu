@@ -29,7 +29,7 @@
 //   operands from shared memory by ldmatrix (V by ldmatrix.trans from
 //   its row-major tile).  Shared-memory rows are XOR-swizzled in 16-byte
 //   chunks, so the 8 rows of one ldmatrix phase hit 8 different banks
-//   and Q, K and V fit in 48 KB without padding.
+//   and Q, K and V fit in 48 KB at dh = 128 without padding.
 // - Softmax in the accumulator's fragment layout: a row lies on a quad
 //   of 4 lanes, so its max and sum take two __shfl_xor_sync.  P stays in
 //   registers and is the A fragment of P.V.
@@ -63,12 +63,17 @@ constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Element offset of 16-byte chunk c of row r in a swizzled 64-row tile.
-// dh >= 64: the chunk index is XORed with r % 8.  dh = 32 (4 chunks, 64 B
-// a row): with (r / 2) % 4, since rows r and r + 1 already lie in the two
-// halves of one 128-byte bank line.
+// dh >= 64: the chunk index is XORed with r % 8, which permutes the
+// chunks inside each aligned group of 8 (one 128-byte bank line); a row
+// of CPR chunks stays in itself only when CPR is a multiple of 8 (dh =
+// 64, 128, 192: 8, 16, 24 chunks).  dh = 32 (4 chunks, 64 B a row):
+// with (r / 2) % 4, since rows r and r + 1 already lie in the two halves
+// of one 128-byte bank line.
 template <int DH>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int CPR = DH / 8;
+  static_assert(CPR == 4 || CPR % 8 == 0,
+                "the XOR swizzle permutes chunks within groups of 8");
   constexpr int X = CPR >= 8 ? 7 : CPR - 1;
   constexpr int SH = CPR >= 8 ? 0 : 1;
   return r * DH + ((c ^ ((r >> SH) & X)) << 3);
@@ -349,7 +354,11 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// bf16 only; dh in {32, 64, 128}; every row of q/k/v/out 16-byte aligned.
+// bf16 only; dh in {32, 64, 128, 192}; every row of q/k/v/out 16-byte
+// aligned.  dh = 192 (MLA's dn + dr on deepseek-v2-lite) is the same
+// kernel: 24 chunks a row, 24 n8 output tiles a warp, and Q plus two K/V
+// stages take 5 x 64 x 192 x 2 = 122,880 B of shared memory, one block an
+// SM (two would need 245,760 B of the SM's 233,472).
 // stats: nullptr, or float32 (2, B, KV, G, Sq) for each row's m and l.
 // Returns the cudaError_t of the launch.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
@@ -361,6 +370,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     case 32:  return launch<32>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
     case 64:  return launch<64>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
     case 128: return launch<128>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
+    case 192: return launch<192>(q, k, v, out, stats, B, Sq, Sk, KV, G, q_offset, k_offset, causal, scale, stream);
     default:  return (int)cudaErrorInvalidValue;
   }
 }

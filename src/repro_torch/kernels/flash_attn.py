@@ -7,8 +7,9 @@ like q.  ``q_offset`` is the absolute position of q[0]; ``k_offset`` the
 position of k[0] (negative: leading always-visible keys).
 
 On a CUDA tensor the wrapper launches ``csrc/flash_attn.cu`` (bf16,
-dh in {32, 64, 128}; any Sq/Sk, masked; GQA as an index map; both
-products on tensor cores).  On a CPU tensor it runs
+dh in {32, 64, 128, 192}: 192 is MLA's dn + dr on deepseek-v2-lite;
+any Sq/Sk, masked; GQA as an index map; both products on tensor
+cores).  On a CPU tensor it runs
 :func:`flash_attention_plain`, the reference's chunked online-softmax
 algorithm step for step (f32 running max/sum/acc, P rounded to the input
 type before P·V).
@@ -36,6 +37,7 @@ NEG_INF = -1e30
 
 
 counter = _build.Counter()
+HEAD_DIMS = (32, 64, 128, 192)        # the instances csrc/flash_attn.cu builds
 
 
 def flash_attention_plain(q, k, v, *, causal=True, q_offset=0, k_offset=0,
@@ -128,8 +130,8 @@ def _launch(q, k, v, *, causal, q_offset, k_offset, stats=False):
     Sk = k.shape[1]
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash kernel takes bfloat16 q/k/v")
-    if dh not in (32, 64, 128):
-        raise ValueError(f"flash kernel takes dh in (32, 64, 128), got {dh}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes dh in {HEAD_DIMS}, got {dh}")
     if k.shape != (B, Sk, KV, dh) or v.shape != k.shape:
         raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
                          f"not match q {tuple(q.shape)}")

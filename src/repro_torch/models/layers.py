@@ -1,8 +1,10 @@
-"""Transformer layers of the dense stack (counterpart of
-``repro/models/layers.py``): norms, rope, flash attention, the GQA
-attention block (qk-norm, rope) in its four modes (train, and the
-serving modes prefill, decode and paged), decode and paged attention,
-and the dense FFN (SwiGLU, tanh-GELU or ReLU).
+"""Transformer layers (counterpart of ``repro/models/layers.py``):
+norms, rope, flash attention, the GQA attention block (qk-norm, rope)
+in its four modes (train, and the serving modes prefill, decode and
+paged), decode and paged attention, the MLA block (DeepSeek-V2's latent
+attention: K2 at dh = dn + dr in train and prefill, the absorbed form
+over the latent cache in decode), and the dense FFN (SwiGLU, tanh-GELU
+or ReLU).
 
 A block's parameters arrive as one layer's slice of the stacked leaves.
 Activations are (B, S, D) in the model dtype.  ``pc``
@@ -119,11 +121,37 @@ def attn_params(cfg, gen, L, device):
     return p
 
 
-def ffn_params(cfg, gen, L, device):
+def mla_params(cfg, gen, L, device):
+    """One MLA block's leaves, stacked over ``L`` layers: ``wq`` (D,
+    H·(dn + dr)), the down-projection ``wdkv`` (D, kv_lora + dr), the
+    float32 ``kv_norm`` scale, the latent up-projections ``wuk``/``wuv``
+    (kv_lora, H·dn) and ``wo`` (H·dn, D)."""
+    D, H = cfg.d_model, cfg.n_heads
+    dn, dr, lora = cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora
+    dt = getattr(torch, cfg.dtype)
+    std = D ** -0.5
+    return {
+        "norm": {k: _stacked(v, L)
+                 for k, v in norm_params(cfg, D, device).items()},
+        "wq": randn_scaled((L, D, H * (dn + dr)), std, gen, dt, device),
+        "wdkv": randn_scaled((L, D, lora + dr), std, gen, dt, device),
+        "kv_norm": {"scale": _stacked(
+            torch.ones((lora,), dtype=F32, device=device), L)},
+        "wuk": randn_scaled((L, lora, H * dn), lora ** -0.5, gen, dt,
+                            device),
+        "wuv": randn_scaled((L, lora, H * dn), lora ** -0.5, gen, dt,
+                            device),
+        "wo": randn_scaled((L, H * dn, D), (H * dn) ** -0.5, gen, dt,
+                           device),
+    }
+
+
+def ffn_params(cfg, gen, L, device, d_ff=None):
     """One dense FFN block's leaves, stacked over ``L`` layers: gate and
     up projections for SwiGLU (``act == "silu"``), one input projection
-    otherwise."""
-    D, F = cfg.d_model, cfg.d_ff
+    otherwise; ``d_ff`` is the block's own width (``BlockCfg.d_ff``),
+    ``cfg.d_ff`` when None or 0."""
+    D, F = cfg.d_model, d_ff or cfg.d_ff
     dt = getattr(torch, cfg.dtype)
     p = {"norm": {k: _stacked(v, L)
                   for k, v in norm_params(cfg, D, device).items()}}
@@ -271,6 +299,72 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
     return mm(o.reshape(B, S, H * dh), p["wo"], "wo").to(x.dtype)
+
+
+def mla_fwd(cfg, p, x, *, mode="train", cache=None, pos=0):
+    """DeepSeek-V2 multi-head latent attention.  The cache holds only
+    the latent ``ckv`` (B, Smax, kv_lora) and the shared rope key ``kr``
+    (B, Smax, dr) a token.
+
+    ``q`` splits into ``qn`` (dn) and ``qr`` (dr); the down-projection
+    into ``ckv`` (rms-normed by ``kv_norm``) and ``kr``; rope goes on
+    ``qr`` and ``kr`` only, at ``pos + arange(S)``.  Train and prefill:
+    per-head keys ``[ckv·wuk, kr]`` (``kr`` broadcast over the heads)
+    and values ``ckv·wuv`` zero-padded to dn + dr, through K2 at dh =
+    dn + dr (its scale (dn + dr)^-0.5 is MLA's), the output cut back to
+    dn; prefill writes ``ckv``/``kr`` to the cache at [0, S).  Decode:
+    the weight-absorbed form against the latent cache in float32, the
+    two score terms summed then scaled by ``(dn + dr) ** -0.5``, the
+    ``pos + 1`` valid entries softmaxed, the output taken back through
+    ``wuv``; per-head K/V never exist.  Cache writes are in place.
+    """
+    B, S, D = x.shape
+    H, dn, dr, lora = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
+                       cfg.kv_lora)
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(
+            f"mla serves mode={mode!r} nowhere: the paged engine covers "
+            "attn mixers only (serve MLA with the lockstep path)")
+    h = apply_norm(cfg, p["norm"], x)
+    q = (h @ p["wq"]).reshape(B, S, H, dn + dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+    dkv = h @ p["wdkv"]
+    ckv = rms_norm(dkv[..., :lora], p["kv_norm"]["scale"])    # (B, S, lora)
+    kr = dkv[..., lora:].reshape(B, S, 1, dr)
+    positions = pos + torch.arange(S, device=x.device)
+    qr = rope(qr, positions, cfg.rope_theta)
+    kr = rope(kr, positions, cfg.rope_theta)
+    wuk = p["wuk"].reshape(lora, H, dn)
+    wuv = p["wuv"].reshape(lora, H, dn)
+
+    if mode == "decode":
+        cache["ckv"][:, pos:pos + S] = ckv
+        cache["kr"][:, pos:pos + S] = kr[:, :, 0]
+        ckv_c, kr_c = cache["ckv"].to(F32), cache["kr"].to(F32)
+        q_lat = torch.einsum("bqhd,lhd->bqhl", qn.to(F32), wuk.to(F32))
+        s = torch.einsum("bqhl,bsl->bhqs", q_lat, ckv_c)
+        s = s + torch.einsum("bqhd,bsd->bhqs", qr.to(F32), kr_c)
+        s = s * (dn + dr) ** -0.5
+        valid = torch.arange(ckv_c.shape[1], device=x.device) < pos + 1
+        s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=F32,
+                                               device=x.device))
+        pr = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhqs,bsl->bqhl", pr, ckv_c)
+        o = torch.einsum("bqhl,lhd->bqhd", o_lat, wuv.to(F32)).to(x.dtype)
+    else:
+        kn = torch.einsum("bsl,lhd->bshd", ckv, wuk)
+        vv = torch.einsum("bsl,lhd->bshd", ckv, wuv)
+        kfull = torch.cat([kn, kr.expand(B, S, H, dr)], dim=-1)
+        qfull = torch.cat([qn, qr], dim=-1).reshape(B, S, H, 1, dn + dr)
+        vpad = torch.nn.functional.pad(vv, (0, dr))
+        o = flash_attention(qfull, kfull, vpad, causal=True, q_offset=pos,
+                            q_chunk=cfg.attn_q_chunk,
+                            k_chunk=cfg.attn_k_chunk)
+        o = o.reshape(B, S, H, dn + dr)[..., :dn]
+        if mode == "prefill":
+            cache["ckv"][:, :S] = ckv
+            cache["kr"][:, :S] = kr[:, :, 0]
+    return (o.reshape(B, S, H * dn) @ p["wo"]).to(x.dtype)
 
 
 def ffn_fwd(cfg, p, x, pc=None):

@@ -8,8 +8,12 @@ dict tree::
     final_norm.{scale[, bias]}
     [head.w (D, V)]                              # absent when tied
     stages.s{i}.b{j}.mix.{norm.*, wq, wk, wv, wo[, q_norm.scale,
-                          k_norm.scale]}
-    stages.s{i}.b{j}.ffn.{norm.*, wg, wu | wi, wd}
+                          k_norm.scale]}                       # attn
+    stages.s{i}.b{j}.mix.{norm.*, wq, wdkv, kv_norm.scale, wuk, wuv,
+                          wo}                                  # mla
+    stages.s{i}.b{j}.ffn.{norm.*, wg, wu | wi, wd}               # dense
+    stages.s{i}.b{j}.ffn.{norm.*, router, we_g, we_u, we_d[, ws_g, ws_u,
+                          ws_d]}                               # moe
 
 with every leaf under ``stages`` stacked over its stage's ``repeat`` on
 axis 0, so ``named_parameters()`` with ``.`` read as ``/`` gives the
@@ -19,9 +23,11 @@ stacked leaf without a copy.
 
 Serving (DESIGN.md §12): ``prefill``/``serve_step`` run the lockstep
 path over a cache ``init_cache`` makes, (R, B, Smax, KV, dh) per
-``s{i}/b{j}`` leaf; ``paged_step`` runs one bucketed call of the
-continuous-batching engine over the arena ``init_paged_cache`` makes,
-(R, n_pages, page_size, KV, dh) per leaf.  Both layouts are the
+``s{i}/b{j}`` leaf of an attn block and the latent (R, B, Smax,
+kv_lora) and (R, B, Smax, dr) of an MLA block; ``paged_step`` runs one
+bucketed call of the continuous-batching engine over the arena
+``init_paged_cache`` makes, (R, n_pages, page_size, KV, dh) per leaf
+(attn mixers only, MoE FFNs included).  Both layouts are the
 reference's, and both are written in place.
 
 The loss is a chunked cross-entropy over sequence chunks, so the
@@ -47,7 +53,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.core import zo
 from repro_torch.fused import ref as fused_ref
-from repro_torch.models import frontends, layers
+from repro_torch.models import frontends, layers, moe
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
@@ -94,13 +100,30 @@ class LM(ParamNode):
         self.cfg = cfg
 
 
+MIXERS = ("attn", "mla")
+FFNS = ("dense", "moe")
+
+
 def _check_supported(cfg: ModelConfig):
-    """The port runs ``attn + dense`` blocks (the dense zoo and OPT)."""
+    """The port runs ``attn``/``mla`` mixers with ``dense``/``moe`` FFNs
+    (OPT, the dense zoo, granite-moe, deepseek-v2-lite); the SSM mixers
+    are not yet ported."""
     for st in cfg.stages:
         for b in st.pattern:
-            if b.kind != "attn" or b.ffn != "dense":
+            if b.kind not in MIXERS or b.ffn not in FFNS:
                 raise NotImplementedError(
                     f"{b.kind}+{b.ffn} blocks are not yet ported")
+
+
+def _block_params(cfg: ModelConfig, b, gen, L, device):
+    """One (stage, pattern position)'s leaves by its kinds, stacked over
+    the stage's ``L`` repeats (the reference's ``_block_params``)."""
+    mix = (layers.attn_params if b.kind == "attn" else layers.mla_params)
+    out = {"mix": mix(cfg, gen, L, device)}       # drawn first, then ffn
+    out["ffn"] = (layers.ffn_params(cfg, gen, L, device, d_ff=b.d_ff)
+                  if b.ffn == "dense" else moe.moe_params(cfg, gen, L,
+                                                          device))
+    return out
 
 
 # ------------------------------------------------------------------ init
@@ -120,11 +143,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> LM:
         "final_norm": layers.norm_params(cfg, D, device),
         "stages": {
             f"s{si}": {
-                f"b{bj}": {"mix": layers.attn_params(cfg, gen, st.repeat,
-                                                     device),
-                           "ffn": layers.ffn_params(cfg, gen, st.repeat,
-                                                    device)}
-                for bj, _ in enumerate(st.pattern)}
+                f"b{bj}": _block_params(cfg, b, gen, st.repeat, device)
+                for bj, b in enumerate(st.pattern)}
             for si, st in enumerate(cfg.stages)},
     }
     if not cfg.tie_embeddings:
@@ -134,8 +154,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> LM:
 
 
 def _leaf_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
-    """Norm leaves are float32 in the reference; the rest take cfg.dtype."""
-    return F32 if "norm/" in path else getattr(torch, cfg.dtype)
+    """Norm leaves (``kv_norm`` too) and the MoE router are float32 in
+    the reference; the rest take cfg.dtype."""
+    if "norm/" in path or path.endswith("/router"):
+        return F32
+    return getattr(torch, cfg.dtype)
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -244,27 +267,49 @@ def count_params(params) -> int:
 
 
 def count_active_params(cfg: ModelConfig, params) -> int:
-    """Parameters a token's matmuls read (the embedding lookups are not
-    matmuls), for MODEL_FLOPS = 6·N_active·tokens; every ported block
-    is dense, so no expert share is taken."""
-    return sum(t.numel() for path, t in zo.leaf_items(params)
-               if path not in ("embed/tok", "embed/pos"))
+    """Parameters a token's matmuls read, for MODEL_FLOPS =
+    6·N_active·tokens: the routed experts' ``we_*`` stacks count at
+    their ``top_k / n_experts`` share (integer division of the leaf's
+    size, as the reference's), the embedding lookups not at all."""
+    total = 0
+    for path, t in zo.leaf_items(params):
+        n = t.numel()
+        if any(w in path for w in ("we_g", "we_u", "we_d")):
+            n = n * cfg.top_k // cfg.n_experts
+        if "embed/tok" in path or "embed/pos" in path:
+            n = 0
+        total += n
+    return total
 
 
 # --------------------------------------------------------------- forward
-def _run_block(cfg, p, x, pc=None, **mix_kw):
-    x = x + layers.attn_fwd(cfg, p["mix"], x,
-                            pc=None if pc is None else pc.child("mix"),
-                            **mix_kw)
+def _run_block(cfg, b, p, x, pc=None, **mix_kw):
+    """One block by its kinds: (x, aux), ``aux`` the MoE FFN's
+    load-balance term or None for a dense FFN."""
+    if pc is not None and (b.kind != "attn" or b.ffn == "moe"):
+        raise NotImplementedError(
+            f"virtual perturbation covers attn + dense blocks; got "
+            f"{b.kind}+{b.ffn} (use forward_backend='materialized')")
+    if b.kind == "attn":
+        x = x + layers.attn_fwd(cfg, p["mix"], x,
+                                pc=None if pc is None else pc.child("mix"),
+                                **mix_kw)
+    else:
+        mix_kw.pop("pages", None)
+        x = x + layers.mla_fwd(cfg, p["mix"], x, **mix_kw)
+    if b.ffn == "moe":
+        y, aux = moe.moe_fwd(cfg, p["ffn"], x)
+        return x + y, aux
     return x + layers.ffn_fwd(cfg, p["ffn"], x,
-                              pc=None if pc is None else pc.child("ffn"))
+                              pc=None if pc is None else pc.child("ffn")), None
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
             mode="train", caches=None, pos=0, pages=None, embeds=None):
     """tokens (B, S), or ``embeds`` (B, S, D) for stub frontends (cast
     to ``cfg.dtype``) -> hidden (B, S, D) in train mode; (hidden,
-    caches) in a serving mode.
+    caches) in a serving mode.  :func:`forward_aux` also returns the
+    summed MoE load-balance term.
 
     ``perturb`` (fused.PerturbCtx, train mode only) runs the forward
     against the virtually perturbed weights theta + s*eps*z; a paired ctx
@@ -278,6 +323,17 @@ def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
     the (B, max_pages) page table and ``pos`` a (B,) tensor of per-lane
     start positions, each lane at its own positions).  The caches are
     written in place and returned, per stage and block."""
+    hidden, caches, _ = forward_aux(cfg, params, tokens, perturb,
+                                    mode=mode, caches=caches, pos=pos,
+                                    pages=pages, embeds=embeds)
+    return hidden if mode == "train" else (hidden, caches)
+
+
+def forward_aux(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
+                mode="train", caches=None, pos=0, pages=None, embeds=None):
+    """:func:`forward`'s computation -> (hidden, caches, aux): ``aux``
+    the float32 sum of the MoE blocks' load-balance terms in layer
+    order (the reference's ``aux_total``), None without MoE blocks."""
     if mode != "train" and perturb is not None:
         raise NotImplementedError(f"mode={mode!r} takes no perturbation")
     P = 0 if (perturb is None or perturb.pair is None) else perturb.pair.n
@@ -311,29 +367,35 @@ def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
                      ).reshape(x.shape)
             else:
                 x = x + fused_ref.ppos(pos_w, 0, S, pseed, perturb.scale)
+    aux_total = None
     for si, st in enumerate(cfg.stages):
         sp = params["stages"][f"s{si}"]
         pmasks = (None if perturb is None else
                   [perturb.group_mask(f"s{si}.b{bj}", st.repeat)
                    for bj in range(len(st.pattern))])
         for l in range(st.repeat):
-            for bj in range(len(st.pattern)):
+            for bj, b in enumerate(st.pattern):
                 bp = sp[f"b{bj}"].layer(l)
                 if mode == "train":
                     pc = (None if perturb is None else perturb.block(
                         f"stages/s{si}/b{bj}", l, pmasks[bj][l]))
-                    x = _run_block(cfg, bp, x, pc)
+                    x, aux = _run_block(cfg, b, bp, x, pc)
                 else:
                     bc = caches[f"s{si}"][f"b{bj}"]
-                    x = _run_block(cfg, bp, x, mode=mode, pos=pos,
-                                   cache={"k": bc["k"][l], "v": bc["v"][l]},
-                                   pages=pages)
+                    x, aux = _run_block(
+                        cfg, b, bp, x, mode=mode, pos=pos,
+                        cache={name: t[l] for name, t in bc.items()},
+                        pages=pages)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
     if mode != "train":
-        return layers.apply_norm(cfg, params["final_norm"], x), caches
+        return (layers.apply_norm(cfg, params["final_norm"], x), caches,
+                aux_total)
     if perturb is None:
-        return layers.apply_norm(cfg, params["final_norm"], x)
-    return perturb.leaf("final_norm").apply_norm(cfg, params["final_norm"],
-                                                 x)
+        return (layers.apply_norm(cfg, params["final_norm"], x), None,
+                aux_total)
+    return (perturb.leaf("final_norm").apply_norm(cfg, params["final_norm"],
+                                                  x), None, aux_total)
 
 
 def _head_matrix(cfg, params):
@@ -390,45 +452,53 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def lm_loss(cfg: ModelConfig, params: LM, batch, perturb=None, *,
-            grad: bool = False):
+def lm_loss(cfg: ModelConfig, params: LM, batch, aux_coef=0.0,
+            perturb=None, *, grad: bool = False):
     """batch: {tokens (B,S), labels (B,S), loss_mask (B,S)} tensors, or
     {embeds (B,S,D), labels, loss_mask} for stub-frontend archs.
     ``perturb``: evaluate loss(theta + s*eps*z) virtually; a paired ctx
-    returns the (P,) loss vector ``[l_plus, l_minus]``.  ``grad=True``
-    records the graph for a backward (first-order training); otherwise
-    the loss runs under no-grad."""
+    returns the (P,) loss vector ``[l_plus, l_minus]``.  A model with
+    MoE blocks adds ``aux_coef`` times their load-balance term (0 by
+    default, as the reference's).  ``grad=True`` records the graph for
+    a backward (first-order training); otherwise the loss runs under
+    no-grad."""
     with torch.set_grad_enabled(grad):
-        hidden = forward(cfg, params, batch.get("tokens"), perturb=perturb,
-                         embeds=batch.get("embeds"))
-        return chunked_ce(cfg, params, hidden, batch["labels"],
+        hidden, _, aux = forward_aux(cfg, params, batch.get("tokens"),
+                                     perturb=perturb,
+                                     embeds=batch.get("embeds"))
+        loss = chunked_ce(cfg, params, hidden, batch["labels"],
                           batch["loss_mask"], perturb=perturb)
+        return loss if aux is None else loss + aux_coef * aux
 
 
 # ---------------------------------------------------------------- serving
-def _cache_tree(cfg: ModelConfig, shape_of, dtype, device):
+def _cache_tree(cfg: ModelConfig, shapes_of, dtype, device):
+    """Zeros of ``shapes_of(block, R)`` ({leaf: shape}) per stage-block."""
     dt = getattr(torch, dtype or cfg.dtype)
     dev = resolve_device(device)
-    caches: Dict = {}
-    for si, st in enumerate(cfg.stages):
-        caches[f"s{si}"] = {
-            f"b{bj}": {"k": torch.zeros(shape_of(st.repeat), dtype=dt,
-                                        device=dev),
-                       "v": torch.zeros(shape_of(st.repeat), dtype=dt,
-                                        device=dev)}
-            for bj, _ in enumerate(st.pattern)}
-    return caches
+    return {f"s{si}": {
+        f"b{bj}": {name: torch.zeros(shape, dtype=dt, device=dev)
+                   for name, shape in shapes_of(b, st.repeat).items()}
+        for bj, b in enumerate(st.pattern)}
+        for si, st in enumerate(cfg.stages)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None):
-    """An empty lockstep cache for ``forward(mode='prefill'|'decode')``:
-    {"k", "v"} zeros of (R, batch, max_seq, KV, dh) per stage-block, on
-    ``device`` (None: the card)."""
+    """An empty lockstep cache for ``forward(mode='prefill'|'decode')``,
+    per stage-block: {"k", "v"} zeros of (R, batch, max_seq, KV, dh) for
+    an attn mixer, {"ckv": (R, batch, max_seq, kv_lora), "kr": (R,
+    batch, max_seq, dr)} for MLA, on ``device`` (None: the card)."""
     _check_supported(cfg)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
-    return _cache_tree(cfg, lambda R: (R, batch, max_seq, KV, dh), dtype,
-                       device)
+
+    def shapes(b, R):
+        if b.kind == "mla":
+            return {"ckv": (R, batch, max_seq, cfg.kv_lora),
+                    "kr": (R, batch, max_seq, cfg.rope_head_dim)}
+        return {"k": (R, batch, max_seq, KV, dh),
+                "v": (R, batch, max_seq, KV, dh)}
+    return _cache_tree(cfg, shapes, dtype, device)
 
 
 def serve_step(cfg: ModelConfig, params, caches, token, pos: int):
@@ -455,7 +525,8 @@ def prefill(cfg: ModelConfig, params, tokens, max_seq: int):
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """True when every mixer is attn and the model reads tokens — the
-    block family the paged serving engine covers (DESIGN.md §12)."""
+    block family the paged serving engine covers (DESIGN.md §12), MoE
+    FFNs included; MLA's latent cache is served by the lockstep path."""
     return (not frontends.uses_embeds(cfg)
             and all(b.kind == "attn" for s in cfg.stages for b in s.pattern))
 
@@ -469,8 +540,15 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     and the zeros keep what masked attention reads from it finite."""
     _check_supported(cfg)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
-    return _cache_tree(cfg, lambda R: (R, n_pages, page_size, KV, dh),
-                       dtype, device)
+
+    def shapes(b, R):
+        if b.kind != "attn":
+            raise NotImplementedError(
+                f"paged serving covers attn mixers only; {cfg.name} has "
+                f"{b.kind!r} (use the lockstep serve path)")
+        return {"k": (R, n_pages, page_size, KV, dh),
+                "v": (R, n_pages, page_size, KV, dh)}
+    return _cache_tree(cfg, shapes, dtype, device)
 
 
 def paged_step(cfg: ModelConfig, params, arena, tokens, pages, pos, sel):

@@ -1,0 +1,158 @@
+"""Mixture-of-Experts FFN with sort-based static-shape dispatch
+(counterpart of ``repro/models/moe.py``).
+
+Routing is DeepSeek/Granite-style: a float32 router, softmax over
+experts, top-k, renormalized.  Dispatch is per batch row: the row's
+token-expert assignments are sorted by expert id (a stable sort, as
+``jnp.argsort``), each expert takes a contiguous capacity-C slab of a
+(B, E·C + 1, D) buffer whose last slot is the trash slot that dropped
+assignments write to, the expert FFNs run as one batched SwiGLU
+``einsum`` over (E, B·C) rows, and the outputs come back weighted.
+
+The combine is deterministic on the card: every token owns exactly k
+sorted assignments, so the port gathers each token's k weighted expert
+outputs in the order of their sorted positions (the order the
+reference's float32 scatter-add visits them) and adds them in that
+order, where ``index_add_`` would add with atomics in no fixed order.
+
+Top-k comes from a stable descending sort: ``lax.top_k`` breaks ties
+toward the lower expert index, which ``torch.topk`` does not promise.
+
+Every op is plain PyTorch: the reference computes routing, dispatch and
+the expert products outside any Pallas kernel.  Its ``ctx.constrain``
+sharding hints fall away on one device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers
+
+F32 = torch.float32
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Per-dispatch-group expert capacity: ``ceil(tokens·k·cf / E)``,
+    rounded up to a multiple of 4 once ``tokens >= 4``, never above
+    ``tokens`` (a token gives each expert at most one assignment), so a
+    single-token decode row gets C = 1."""
+    c = -(-int(tokens * cfg.top_k * cfg.capacity_factor) // cfg.n_experts)
+    return max(1, min(tokens, -(-c // 4) * 4 if tokens >= 4 else c))
+
+
+def moe_params(cfg, gen, L, device):
+    """One MoE FFN block's leaves, stacked over ``L`` layers: the float32
+    ``router`` (D, E), the experts' ``we_g``/``we_u`` (E, D, F) and
+    ``we_d`` (E, F, D), and the shared experts' ``ws_*`` (width
+    ``n_shared_experts · F``) when configured."""
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    dt = getattr(torch, cfg.dtype)
+    rnd = layers.randn_scaled
+    p = {
+        "norm": {k: layers._stacked(v, L)
+                 for k, v in layers.norm_params(cfg, D, device).items()},
+        "router": rnd((L, D, E), D ** -0.5, gen, F32, device),
+        "we_g": rnd((L, E, D, F), D ** -0.5, gen, dt, device),
+        "we_u": rnd((L, E, D, F), D ** -0.5, gen, dt, device),
+        "we_d": rnd((L, E, F, D), F ** -0.5, gen, dt, device),
+    }
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * F
+        p["ws_g"] = rnd((L, D, Fs), D ** -0.5, gen, dt, device)
+        p["ws_u"] = rnd((L, D, Fs), D ** -0.5, gen, dt, device)
+        p["ws_d"] = rnd((L, Fs, D), Fs ** -0.5, gen, dt, device)
+    return p
+
+
+def route(probs, k: int):
+    """(top_w, top_e) of float32 ``probs`` (B, S, E): the k largest
+    probabilities, ties toward the lower expert index, renormalized."""
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[..., :k], top_e[..., :k]
+    return top_w / torch.sum(top_w, dim=-1, keepdim=True), top_e
+
+
+def dispatch(top_e, n_experts: int, C: int):
+    """Per-row sort-based dispatch of ``top_e`` (B, S, k): (order, e_s,
+    keep, slot), each (B, S·k).  ``order`` sorts the row's assignments
+    (token-major, rank-minor) by expert id, stably; ``e_s`` is the
+    sorted expert ids; an assignment keeps its place when it is among
+    the first C of its expert (``keep``), and ``slot`` is then
+    ``e·C + its place``, else E·C (the trash slot)."""
+    B, S, k = top_e.shape
+    E = n_experts
+    e_flat = top_e.reshape(B, S * k)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    e_s = torch.gather(e_flat, 1, order)
+    counts = torch.zeros((B, E), dtype=e_s.dtype, device=e_s.device)
+    counts.scatter_add_(1, e_s, torch.ones_like(e_s))
+    starts = torch.cumsum(counts, dim=-1) - counts
+    pos = (torch.arange(S * k, device=e_s.device)[None]
+           - torch.gather(starts, 1, e_s))
+    keep = pos < C
+    slot = torch.where(keep, e_s * C + pos, torch.full_like(e_s, E * C))
+    return order, e_s, keep, slot
+
+
+def _rows(t, idx):
+    """``t`` (B, N, D) gathered along axis 1 at ``idx`` (B, M)."""
+    return torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+
+def moe_fwd(cfg, p, x):
+    """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar).
+
+    ``aux`` is the Switch-style load-balance term E · Σ_e mean-prob_e ·
+    mean-assignment-share_e.  The expert products run in the model
+    dtype, as the port's dense FFN does (the reference asks XLA for
+    float32 results; the smoke configs are float32, where the two are
+    the same computation); the combine and the shared experts' sum are
+    float32."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, S)
+    h = layers.apply_norm(cfg, p["norm"], x)
+
+    logits = h.to(F32) @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = route(probs, k)
+
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.zeros((B, E), dtype=F32, device=x.device)
+    ce.scatter_add_(1, top_e.reshape(B, -1),
+                    torch.ones((B, S * k), dtype=F32, device=x.device))
+    ce = ce / (S * k)
+    aux = E * torch.sum(me * torch.mean(ce, dim=0))
+
+    # ---- per-row sort-based dispatch -----------------------------------
+    order, e_s, keep, slot = dispatch(top_e, E, C)
+    tok_s = torch.div(order, k, rounding_mode="floor")   # flat i = t·k + r
+    w_s = torch.gather(top_w.reshape(B, S * k), 1, order)
+    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf.scatter_(1, slot[..., None].expand(-1, -1, D), _rows(h, tok_s))
+    eb = buf[:, :-1].reshape(B, E, C, D)
+
+    # ---- expert FFN (batched SwiGLU over the experts) ------------------
+    g = torch.einsum("becd,edf->becf", eb, p["we_g"])
+    u = torch.einsum("becd,edf->becf", eb, p["we_u"])
+    a = (torch.nn.functional.silu(g.to(F32)) * u.to(F32)).to(x.dtype)
+    o = torch.einsum("becf,efd->becd", a, p["we_d"]).to(F32)
+    o = o.reshape(B, E * C, D)
+
+    # ---- combine: each token's k terms in sorted order -----------------
+    contrib = (_rows(o, torch.clamp(slot, 0, E * C - 1))
+               * torch.where(keep, w_s, torch.zeros_like(w_s))[..., None])
+    inv = torch.empty_like(order)
+    inv.scatter_(1, order, torch.arange(S * k, device=x.device).expand(
+        B, -1))                                   # flat -> sorted position
+    mine = torch.sort(inv.reshape(B, S, k), dim=-1).values
+    terms = _rows(contrib, mine.reshape(B, S * k)).reshape(B, S, k, D)
+    y = torch.zeros((B, S, D), dtype=F32, device=x.device)
+    for r in range(k):
+        y = y + terms[:, :, r]
+
+    if cfg.n_shared_experts:
+        sg = torch.nn.functional.silu((h @ p["ws_g"]).to(F32))
+        su = (h @ p["ws_u"]).to(F32)
+        y = y + ((sg * su).to(x.dtype) @ p["ws_d"]).to(F32)
+    return y.to(x.dtype), aux

@@ -159,6 +159,12 @@ class Trainer:
             if tcfg.mode != "zo":
                 raise ValueError("forward_backend='virtual' requires "
                                  "mode='zo'")
+            from repro_torch.api.validate import virtual_block_errors
+            bad = virtual_block_errors(model_cfg)
+            if bad:
+                raise ValueError(
+                    "forward_backend='virtual' covers attn + dense blocks; "
+                    f"model has {bad}")
         self.experiment, self.derived = _spec, _derived
         # run directory and telemetry session, as the reference wires them
         tel = getattr(_spec, "telemetry", None)

@@ -31,8 +31,9 @@ def test_preset_json_identical(name):
 
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
-    ({"model.arch": "deepseek-v2-lite-16b"}, "model.arch"),
-    ({"model.arch": "granite-moe-1b-a400m"}, "model.arch"),
+    ({"model.arch": "jamba-v0.1-52b", "model.variant": "smoke"},
+     "model.arch"),
+    ({"model.arch": "xlstm-350m", "model.variant": "smoke"}, "model.arch"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])

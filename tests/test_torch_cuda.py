@@ -126,6 +126,9 @@ def test_flash_kernel(dev, q_offset, k_offset, Sk, G, dh):
     (2, 63, 63, 8, 7, 128, 0, 0, True),      # deepseek-coder-33b's G = 7
     (4, 1, 63, 2, 1, 128, 62, 0, True),      # one query at position 62
     (2, 37, 50, 2, 1, 32, 0, 40, True),      # no row sees a key: out = 0
+    (2, 63, 63, 16, 1, 192, 0, 0, True),     # MLA's dn + dr on deepseek
+    (2, 20, 90, 3, 1, 192, 70, 0, True),     # dh = 192 at an offset
+    (1, 130, 130, 2, 1, 192, 0, 0, True),    # dh = 192, 3 x 3 tiles
 ])
 def test_flash_kernel_paths(dev, B, Sq, Sk, KV, G, dh, q_offset, k_offset,
                             causal):
@@ -141,6 +144,54 @@ def test_flash_kernel_paths(dev, B, Sq, Sk, KV, G, dh, q_offset, k_offset,
     _close(got, want)
     if q_offset + Sq - 1 < k_offset:
         assert not got.float().abs().any()
+
+
+def test_flash_kernel_at_dh_192_pads_v_with_exact_zeros(dev):
+    """MLA's call: v zero-padded from dn = 128 to 192; the kernel's pad
+    columns come out as exact zeros, the rest within one bf16 step of
+    the plain version, at the lockstep prefill's (4, 1024, 16, 1, 192)
+    too."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    for B, S in ((16, 63), (4, 1024)):
+        q = torch.randn((B, S, 16, 1, 192), generator=g,
+                        device=dev).bfloat16()
+        k = torch.randn((B, S, 16, 192), generator=g, device=dev).bfloat16()
+        v = torch.nn.functional.pad(torch.randn(
+            (B, S, 16, 128), generator=g, device=dev).bfloat16(), (0, 64))
+        got = kfa.flash_attention(q, k, v, causal=True)
+        assert not got[..., 128:].float().abs().any()
+        _close(got, kfa.flash_attention_plain(q, k, v, causal=True,
+                                              q_chunk=512, k_chunk=2048))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_and_mla_forward_deterministic_on_card(dev, arch):
+    """``moe_fwd`` (the sort-based dispatch and the ordered combine) and
+    a whole bf16 model of each MoE arch run twice on the card give
+    bit-equal, finite outputs: the smoke config widened to d_model 256
+    so that K2 takes its head dim (64 on granite; MLA's 128 + 64 = 192
+    on deepseek)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    wide = ({"d_head": 128, "rope_head_dim": 64}
+            if arch == "deepseek-v2-lite-16b" else {})
+    cfg = configs.get(arch, "smoke").with_(dtype="bfloat16", d_model=256,
+                                           **wide)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    p_gpu = lm.params_from_numpy(cfg, lm.params_to_numpy(p_cpu), dev)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((4, 63, cfg.d_model), generator=g).bfloat16().to(dev)
+    blk = p_gpu["stages"][f"s{len(cfg.stages) - 1}"]["b0"]["ffn"].layer(0)
+    y1, a1 = moe.moe_fwd(cfg, blk, x)
+    y2, a2 = moe.moe_fwd(cfg, blk, x)
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+    assert torch.equal(a1, a2)
+    toks = torch.randint(0, cfg.vocab, (4, 63), generator=g)
+    h1 = lm.forward(cfg, p_gpu, toks.to(dev))
+    h2 = lm.forward(cfg, p_gpu, toks.to(dev))
+    assert torch.equal(h1.view(torch.int16), h2.view(torch.int16))
+    assert torch.isfinite(h1.float()).all()
 
 
 @pytest.mark.parametrize("M,K,N,trans,route", [

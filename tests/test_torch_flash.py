@@ -64,3 +64,47 @@ def test_flash_ragged_query_chunks_match_single_chunk():
     one = tl.flash_attention(q, k, v, q_chunk=20, k_chunk=20)
     many = tl.flash_attention(q, k, v, q_chunk=6, k_chunk=20)
     torch.testing.assert_close(one, many, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dn,dr,S,qo", [(16, 8, 16, 0), (128, 64, 20, 0),
+                                        (128, 64, 9, 6)])
+def test_flash_at_mla_head_dims(dn, dr, S, qo):
+    """MLA's attention shape: dh = dn + dr (24 on the smoke config, 192
+    on deepseek-v2-lite), 16 heads as KV heads with G = 1, v zero-padded
+    from dn to dh.  Against the reference's ``flash_attention`` (rtol
+    1e-5, atol 1e-5) at its scale (dn + dr)^-0.5; the pad columns of the
+    output are exact zeros."""
+    B, H, dh = 2, 4, dn + dr
+    q, k, v = _inputs(B, S, S, H, 1, dh, seed=dh)
+    v[..., dn:] = 0.0
+    want = np.asarray(jl.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=qo, q_chunk=512, k_chunk=2048))
+    got = tl.flash_attention(torch.tensor(q), torch.tensor(k),
+                             torch.tensor(v), causal=True, q_offset=qo,
+                             q_chunk=512, k_chunk=2048).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[..., dn:].any()
+
+
+def test_flash_gradient_at_mla_head_dim():
+    """K2's gradient path (``FlashAttention``: the forward's m and l
+    saved, the tensor-op backward) at MLA's smoke dh = 24 with a padded
+    v, against autograd through the reference's ``flash_attention``
+    (``jax.vjp``): rtol 1e-4, atol 1e-5."""
+    import jax
+    B, S, H, dn, dh = 2, 12, 3, 16, 24
+    q, k, v = _inputs(B, S, S, H, 1, dh, seed=4)
+    v[..., dn:] = 0.0
+    dout = np.random.default_rng(5).standard_normal(q.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jl.flash_attention(
+        a, b, c, causal=True, q_chunk=4, k_chunk=8), *(
+        jnp.asarray(t) for t in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    ins = [torch.tensor(t).requires_grad_() for t in (q, k, v)]
+    out = tl.flash_attention(*ins, causal=True, q_chunk=4, k_chunk=8)
+    out.backward(torch.tensor(dout))
+    for t, w in zip(ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)

@@ -463,7 +463,8 @@ def test_validator_accepts_presets(name):
 @pytest.mark.parametrize("override,path", [
     ({"runtime.mesh": "multi_pod"}, "runtime.mesh"),
     ({"model.arch": "xlstm-350m"}, "model.arch"),
-    ({"model.arch": "granite-moe-1b-a400m"}, "model.arch"),
+    ({"model.arch": "jamba-v0.1-52b", "model.variant": "smoke"},
+     "model.arch"),
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_validator_still_rejects_unported(override, path):
