@@ -157,15 +157,37 @@ when it fails:
              gap to the lockstep read, not gated) and dropless at 4.0
              (no drop; ``prefix_cache`` bit-equal with pages shared;
              ``serve``'s engine-against-lockstep gate).
-16. fo     — K2's backward against autograd through its plain version at
+16. ssm    — the zoo's recurrent configs, once no earlier weights are
+             held.  K2 at jamba's GQA (16, 63, 8, 4, 128) and lockstep
+             prefill (4, 1024, 8, 4, 128), SDPA beside; K1 on a layer's
+             row of jamba's ``we_g`` (939.5 M elements) and on xlstm's
+             float32 ``rh`` stack (the ``ssm_shapes`` rows); the plain
+             ``_ssm_chunk_scan`` at (16, 63, 8192, 16) and one
+             ``slstm_fwd`` at (16, 63, 1024) timed.  One layer of each
+             recurrent kind at full width: a 128-token prefill and 8
+             decode steps against the train forward (within 16 bf16
+             steps).  Then xlstm-350m at full width and depth and
+             jamba-v0.1-52b at full width cut to the most periods of 8
+             layers one card holds (3, else 2: a train step and a (4,
+             1024) prefill tried first, the refusing peak logged),
+             ``lezo-opt13b`` materialized, as ``moe`` runs its two: 4
+             steps twice from the seed bit-equal, launches as reckoned
+             (K1 a leaf a sweep; K2 an attention layer a forward),
+             2 + 10 steady steps, the idle share, a profiled step with
+             the Mamba scan, the mLSTM chunk and the sLSTM block by
+             device time; jamba's dropped MoE assignments at capacity
+             factor 1.25; each served through the lockstep ``generate``
+             (4, 1024) + 32 twice (equal tokens; the engine must refuse
+             them) with a decode step timed and profiled.
+17. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-17. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+18. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
-18. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+19. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
              this process holds no 13B weights.  First K1-K4 against
              their plain versions at the shapes one worker's loss shard
              gives them (the ``swarm_shapes`` rows of the kernels line).
@@ -927,25 +949,46 @@ def step_fn(spec, cfg, params):
     return lambda t: step(params, init(), batch, t, base)
 
 
-def phase_profile(spec, cfg, params, tag="profile", ops=False):
+def phase_profile(spec, cfg, params, tag="profile", ops=False,
+                  regions=None):
     """One more step of ``spec`` (the main path's by default) under
-    ``torch.profiler``: device time by kernel and the device's idle
-    share of the step's wall time; with ``ops``, also the aten ops by
-    the device time of the kernels they launched."""
+    ``torch.profiler``: device time by kernel, the kernels a step, and
+    the device's idle share of the step's wall time; with ``ops``, also
+    the aten ops by the device time of the kernels they launched.
+    ``regions`` ({label: (module, function name)}) wraps each function
+    in a ``record_function`` of its label for the profiled step only and
+    logs the device time of the kernels launched inside it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     run = step_fn(spec, cfg, params)
     run(spec.run.steps)                                  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run(spec.run.steps + 1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+    regions = regions or {}
+    saved = {label: getattr(mod, name)
+             for label, (mod, name) in regions.items()}
+
+    def labelled(fn, label):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+    for label, (mod, name) in regions.items():
+        setattr(mod, name, labelled(saved[label], label))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run(spec.run.steps + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        for label, (mod, name) in regions.items():
+            setattr(mod, name, saved[label])
     dev_us, op_us = {}, {}           # device kernels only: an aten op's
     for e in prof.key_averages():    # row repeats its kernels' time
+        if e.key in regions:         # a label's device-side range
+            continue
         if str(e.device_type).endswith("CUDA"):
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -957,7 +1000,11 @@ def phase_profile(spec, cfg, params, tag="profile", ops=False):
                             e.count)
     busy = sum(us for us, _ in dev_us.values()) / 1e6
     log(f"[{tag}] step wall {wall:.3f} s, device busy {busy:.3f} s, "
-        f"idle share {max(0.0, 1 - busy / wall):.3f}")
+        f"idle share {max(0.0, 1 - busy / wall):.3f}, "
+        f"{sum(n for _, n in dev_us.values())} kernels")
+    for key, (us, span, n) in region_times(prof, regions).items():
+        log(f"[{tag}] region {key}: {us / 1e3:.3f} ms of kernel time over "
+            f"{n} calls ({span / 1e3:.3f} ms of device-side range)")
     if busy == 0:
         raise SystemExit(f"{tag}: the trace holds no device time")
     for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -975,6 +1022,36 @@ def phase_profile(spec, cfg, params, tag="profile", ops=False):
     return wall, busy
 
 
+def region_times(prof, labels):
+    """Per ``record_function`` label of ``labels``: (kernel µs, device
+    range µs, calls) in the trace ``prof``.  The device-side range of a
+    label runs from its first kernel's start to its last's end; on the
+    one stream every kernel inside a range was launched inside the
+    label, so its kernel time is the sum of the kernels within the
+    ranges (the profiler's nested ``device_time_total`` counts some
+    kernels twice)."""
+    import bisect
+    ranges = {label: [] for label in labels}
+    kernels = []
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        (ranges[e.name] if e.name in ranges else kernels).append(iv)
+    kernels.sort()
+    starts = [k[0] for k in kernels]
+    out = {}
+    for label, ivs in ranges.items():
+        us = 0.0
+        for a, b in ivs:
+            i = bisect.bisect_left(starts, a)
+            while i < len(kernels) and kernels[i][0] < b:
+                us += min(kernels[i][1], b) - kernels[i][0]
+                i += 1
+        out[label] = (us, sum(b - a for a, b in ivs), len(ivs))
+    return out
+
+
 def expected_launches(spec, params, steps, cfg=None):
     """Launches by kernel that ``steps`` steps of ``spec`` must make on
     ``params`` (of ``cfg``, by default the spec's model), from
@@ -982,8 +1059,9 @@ def expected_launches(spec, params, steps, cfg=None):
     (``fmm.model_matmuls``: 6, or 7 with SwiGLU) and, for stacked
     one_sided probes, K3's probe groups of each layer's active probes
     (``fmm.probe_groups``).  ZO modes here run virtual and paired,
-    momentum and the MoE/MLA archs materialized (one K1 launch a leaf a
-    sweep, one K2 launch a layer a forward).  A swarm spec's sharded step runs the paired
+    momentum and the MoE/MLA and recurrent archs materialized (one K1
+    launch a leaf a sweep, one K2 launch an attention layer a forward:
+    none for a recurrent layer).  A swarm spec's sharded step runs the paired
     probe forward once a loss shard and one commit sweep."""
     from repro_torch import api, estimators
     from repro_torch.api.validate import swarm_active, swarm_shards
@@ -994,6 +1072,7 @@ def expected_launches(spec, params, steps, cfg=None):
     d = api.derive(spec)
     cfg = cfg or d.model_cfg
     e, L = d.est_cfg, cfg.num_layers
+    A = attention_layers(cfg)
     mm = len(fmm.model_matmuls(cfg)[0])
     zspec = zo.build_spec(params, lm.zo_group_fn)
     leaves = len(zspec.paths)
@@ -1004,16 +1083,16 @@ def expected_launches(spec, params, steps, cfg=None):
          "pmatmul": 0}
     for t in range(steps):
         if mode == "fo":
-            n["flash_attention"] += L
+            n["flash_attention"] += A
             continue
         if mode == "zo_momentum":   # probe, -2 eps, restore, t + 1 <= K
             n["zo_axpy_2d"] += leaves * (3 + min(8, t + 1))
-            n["flash_attention"] += 2 * L
+            n["flash_attention"] += 2 * A
             continue
         if e.forward_backend == "materialized":   # K1 a leaf a sweep
             c = estimators.build_estimator(zspec, e).step_counts()
             n["zo_axpy_2d"] += leaves * c["axpy_sweeps"]
-            n["flash_attention"] += L * c["forwards"]
+            n["flash_attention"] += A * c["forwards"]
             continue
         assert e.forward_backend == "virtual" and e.paired_probes
         est = estimators.build_estimator(zspec, e)
@@ -1036,6 +1115,12 @@ def expected_launches(spec, params, steps, cfg=None):
                 n["pmatmul_stack"] += mm * (
                     1 if len(act) <= 2 else len(fmm.probe_groups(act)))
     return n
+
+
+def attention_layers(cfg):
+    """The layers that launch K2 in a forward: attn and MLA mixers."""
+    return sum(st.repeat for st in cfg.stages for b in st.pattern
+               if b.kind in ("attn", "mla"))
 
 
 def run_counted(tag, spec, params=None, trainer=None, val_data=None,
@@ -1069,8 +1154,8 @@ def run_counted(tag, spec, params=None, trainer=None, val_data=None,
     return hist, launches, peak
 
 
-def check_launches(tag, spec, params, launches):
-    want = expected_launches(spec, params, spec.run.steps)
+def check_launches(tag, spec, params, launches, cfg=None):
+    want = expected_launches(spec, params, spec.run.steps, cfg=cfg)
     if launches != want:
         raise SystemExit(f"{tag}: launches {launches} != expected {want}")
 
@@ -2163,18 +2248,22 @@ def moe_spec(arch, **over):
                              **over})
 
 
+DIGEST_CHUNK = 1 << 26                   # elements summed at a time
+
+
 def params_digest(params):
-    """Per leaf, the int64 sum of its elements' bit patterns, one layer
-    row at a time: equal digests and equal scalars read as bit-equal
-    runs."""
+    """Per leaf, the int64 sum of its elements' bit patterns, taken
+    DIGEST_CHUNK elements at a time (an expert row's int64 copy would
+    not fit beside jamba's weights): equal digests and equal scalars
+    read as bit-equal runs."""
     import torch
     from repro_torch.core import zo
     out = {}
     for path, t in zo.leaf_items(params):
-        bits = t.detach().view(torch.int16 if t.element_size() == 2
-                               else torch.int32)
-        rows = bits if bits.dim() > 1 else bits[None]
-        out[path] = sum(int(r.sum(dtype=torch.int64)) for r in rows)
+        bits = t.detach().reshape(-1).view(
+            torch.int16 if t.element_size() == 2 else torch.int32)
+        out[path] = sum(int(bits[i:i + DIGEST_CHUNK].sum(dtype=torch.int64))
+                        for i in range(0, bits.numel(), DIGEST_CHUNK))
     return out
 
 
@@ -2187,131 +2276,153 @@ def moe_parity(ds, gr, eps):
     (64 x 2048 x 1408 bf16) and on its float32 router stack.  Returns
     the ``moe_shapes`` rows by kernel."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attn as kfa
-    from repro_torch.kernels import ref as kref
-    from repro_torch.kernels import zo_axpy as kzo
 
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(2121)
-    B, S = 16, 63
-    pairs = S * (S + 1) // 2
+    g = torch.Generator(device="cuda").manual_seed(2121)
     out = {"flash_attention": [], "zo_axpy_2d": []}
     dn, dr, H = ds.head_dim, ds.rope_head_dim, ds.n_heads
-    for tag, KV, G, dh, pad in (
-            (MOE_MLA, H, 1, dn + dr, dr),
-            (MOE_GRANITE, gr.n_kv_heads, gr.n_heads // gr.n_kv_heads,
-             gr.head_dim, 0)):
-        q = torch.randn((B, S, KV, G, dh), generator=g, device=dev, dtype=bf)
-        k = torch.randn((B, S, KV, dh), generator=g, device=dev, dtype=bf)
-        v = torch.randn((B, S, KV, dh), generator=g, device=dev, dtype=bf)
-        if pad:
-            v[..., dh - pad:] = 0
-        got = kfa.flash_attention(q, k, v, causal=True)
-        err = close(got, kfa.flash_attention_plain(q, k, v, causal=True),
-                    f"flash_attention {tag} dh = {dh}")
-        if pad and got[..., dh - pad:].float().abs().max().item() != 0:
-            raise SystemExit(f"moe: K2 at dh = {dh} writes non-zero pad "
-                             "columns")
-        qs = q.reshape(B, S, KV * G, dh).transpose(1, 2).contiguous()
-        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
-        zoo_row(out, "flash_attention", f"{tag}: q {tuple(q.shape)}, "
-                f"dh = {dh}{', v padded from %d' % (dh - pad) if pad else ''}",
-                tag, lambda: kfa.flash_attention(q, k, v, causal=True),
-                lambda: kfa.flash_attention_plain(q, k, v, causal=True),
-                lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=G > 1),
-                err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
-                flops=4.0 * B * KV * G * dh * pairs, plain_reps=2, reps=50)
-        del q, k, v, got, qs, ks, vs
+    k2_row(out, g, MOE_MLA, 16, 63, H, 1, dn + dr, pad=dr)
+    k2_row(out, g, MOE_GRANITE, 16, 63, gr.n_kv_heads,
+           gr.n_heads // gr.n_kv_heads, gr.head_dim)
 
     # K1: one layer's row of we_g (bf16), then the float32 router stack
     # with every row active
-    w_seed = 0xBEEF
     L1 = ds.stages[1].repeat
-    for tag, shape, dt in (
-            ("we_g one layer's row", (1, ds.n_experts * ds.d_model
-                                      * ds.moe_d_ff), bf),
-            ("router, float32, all rows", (L1, ds.d_model * ds.n_experts),
-             torch.float32)):
-        theta = torch.randn(shape, generator=g, device=dev, dtype=dt) * 0.02
-        mask = torch.ones((shape[0],), dtype=torch.bool)
-        got, want = theta.clone(), theta.clone()
-        kzo.zo_axpy_2d_(got, mask, w_seed, -eps, 1.0)
-        kref.zo_axpy_2d_(want, mask, w_seed, -eps, 1.0)
-        if dt == bf:
-            ulps = bf16_ulps(got, want).max().item()
-            tol = f"<= 1 bf16 ulp (got {ulps})"
-            bad = ulps > 1
-        else:
-            rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max()
-            tol = f"rel <= 1e-6 (got {rel.item():.2e})"
-            bad = rel.item() > 1e-6
-        if bad:
-            raise SystemExit(f"zo_axpy_2d {tag}: {tol}")
-        err = (got.float() - want.float()).abs().max().item()
-        n = theta.numel()
-        del theta
-        zoo_row(out, "zo_axpy_2d", f"{MOE_MLA} {tag} {shape} "
-                f"{str(dt).split('.')[-1]}", MOE_MLA,
-                lambda: kzo.zo_axpy_2d_(got, mask, w_seed, -eps, 1.0),
-                lambda: kref.zo_axpy_2d_(want, mask, w_seed, -eps, 1.0),
-                None, err, tol, n * got.element_size() * 2,
-                insns=n * K1_OPS, reps=10)
-        del got, want
+    k1_row(out, g, eps, MOE_MLA, "we_g one layer's row",
+           (1, ds.n_experts * ds.d_model * ds.moe_d_ff), torch.bfloat16)
+    k1_row(out, g, eps, MOE_MLA, "router, float32, all rows",
+           (L1, ds.d_model * ds.n_experts), torch.float32)
     torch.cuda.empty_cache()
     return out
 
 
-def moe_train(arch):
-    """``lezo-opt13b`` on ``arch`` at full width and depth, materialized:
-    4 steps from the seed twice (launches as ``expected_launches``
-    reckons, finite losses; the two runs' losses, projected gradients
-    and final parameters bit-equal), then 2 + 10 steady steps, the idle
-    share over 10 and a profiled step with device time by op.  Returns
-    (spec, cfg, params, launches of the first run)."""
+def k2_row(out, g, run, B, S, KV, G, dh, pad=0, reps=50):
+    """K2 causal on seeded bf16 q (B, S, KV, G, dh), k and v (v's last
+    ``pad`` columns zero, which must come out exact zeros) against its
+    plain version (``close``), timed into ``out`` by ``zoo_row`` under
+    ``run`` with SDPA (``enable_gqa`` when G > 1) beside."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as kfa
+
+    bf = torch.bfloat16
+    q = torch.randn((B, S, KV, G, dh), generator=g, device="cuda", dtype=bf)
+    k = torch.randn((B, S, KV, dh), generator=g, device="cuda", dtype=bf)
+    v = torch.randn((B, S, KV, dh), generator=g, device="cuda", dtype=bf)
+    if pad:
+        v[..., dh - pad:] = 0
+    got = kfa.flash_attention(q, k, v, causal=True)
+    err = close(got, kfa.flash_attention_plain(q, k, v, causal=True),
+                f"flash_attention {run} dh = {dh}")
+    if pad and got[..., dh - pad:].float().abs().max().item() != 0:
+        raise SystemExit(f"K2 at dh = {dh} writes non-zero pad columns")
+    qs = q.reshape(B, S, KV * G, dh).transpose(1, 2).contiguous()
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    zoo_row(out, "flash_attention", f"{run}: q {tuple(q.shape)}, "
+            f"dh = {dh}{', v padded from %d' % (dh - pad) if pad else ''}",
+            run, lambda: kfa.flash_attention(q, k, v, causal=True),
+            lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=G > 1),
+            err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
+            flops=4.0 * B * KV * G * dh * (S * (S + 1) // 2), plain_reps=2,
+            reps=reps)
+
+
+def k1_row(out, g, eps, run, tag, shape, dt):
+    """K1 on a seeded (L, n) leaf of ``shape`` and ``dt`` with every row
+    active, against its plain version (bf16 within 1 ulp, float32 within
+    1e-6 relative), timed into ``out`` by ``zoo_row`` under ``run``."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import zo_axpy as kzo
+
+    w_seed = 0xBEEF
+    theta = torch.randn(shape, generator=g, device="cuda", dtype=dt) * 0.02
+    mask = torch.ones((shape[0],), dtype=torch.bool)
+    got, want = theta.clone(), theta.clone()
+    del theta
+    kzo.zo_axpy_2d_(got, mask, w_seed, -eps, 1.0)
+    kref.zo_axpy_2d_(want, mask, w_seed, -eps, 1.0)
+    if dt == torch.bfloat16:
+        ulps = bf16_ulps(got, want).max().item()
+        tol = f"<= 1 bf16 ulp (got {ulps})"
+        bad = ulps > 1
+    else:
+        rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max()
+        tol = f"rel <= 1e-6 (got {rel.item():.2e})"
+        bad = rel.item() > 1e-6
+    if bad:
+        raise SystemExit(f"zo_axpy_2d {tag}: {tol}")
+    err = (got.float() - want.float()).abs().max().item()
+    n = got.numel()
+    zoo_row(out, "zo_axpy_2d", f"{run} {tag} {shape} "
+            f"{str(dt).split('.')[-1]}", run,
+            lambda: kzo.zo_axpy_2d_(got, mask, w_seed, -eps, 1.0),
+            lambda: kref.zo_axpy_2d_(want, mask, w_seed, -eps, 1.0),
+            None, err, tol, n * got.element_size() * 2,
+            insns=n * K1_OPS, reps=10)
+
+
+def seeded_train(tag, spec, cfg=None, regions=None):
+    """``spec`` on its model, or on a depth-cut ``cfg`` through its
+    ``Trainer``: 4 steps from the seed twice (launches as
+    ``expected_launches`` reckons, finite losses; the two runs' losses,
+    projected gradients and final parameters bit-equal), then 2 + 10
+    steady steps, the idle share over 10 and a profiled step with device
+    time by op (and by the ``record_function`` labels of ``regions``).
+    Returns (cfg, params, launches of the first run)."""
     import torch
     from repro_torch import api
     from repro_torch.models import lm
+    from repro_torch.train.trainer import Trainer
 
-    spec = moe_spec(arch)
-    cfg = api.derive(spec).model_cfg
+    def trainer(sp, params=None):
+        if cut is None:
+            return None
+        d = api.derive(sp)
+        return Trainer(cut, d.task, d.tcfg, d.est_cfg, params=params,
+                       _spec=sp, _derived=d)
+
+    cut, cfg = cfg, cfg or api.derive(spec).model_cfg
     seen = []
     for run in ("", " again"):
-        hist, launches, peak = run_counted(f"moe {arch}{run}", spec)
+        hist, launches, peak = run_counted(f"{tag}{run}", spec,
+                                           trainer=trainer(spec))
         params = hist["final_params"]
         want = expected_launches(spec, params, spec.run.steps, cfg=cfg)
         if launches != want:
-            raise SystemExit(f"moe {arch}: launches {launches} != expected "
+            raise SystemExit(f"{tag}: launches {launches} != expected "
                              f"{want}")
         seen.append((hist["loss"], hist["projected_grad"],
                      params_digest(params)))
         if not run:
             first = launches
-            log(f"[moe] {arch}: {lm.count_params(params) / 1e9:.3f} B "
-                f"parameters, {lm.count_active_params(cfg, params) / 1e9:.3f}"
-                f" B active a token; peak {peak:.2f} GiB")
+            log(f"[{tag}] {lm.count_params(params) / 1e9:.3f} B parameters, "
+                f"{lm.count_active_params(cfg, params) / 1e9:.3f} B active "
+                f"a token; peak {peak:.2f} GiB")
             del hist, params
             gc.collect()
             torch.cuda.empty_cache()
     if seen[0] != seen[1]:
-        raise SystemExit(f"moe {arch}: two runs from the seed differ "
+        raise SystemExit(f"{tag}: two runs from the seed differ "
                          f"(losses {seen[0][0]} vs {seen[1][0]})")
-    log(f"[moe] {arch}: the second run from the seed is bit-equal "
+    log(f"[{tag}] the second run from the seed is bit-equal "
         f"(losses, projected gradients, {len(seen[0][2])} leaves)")
     del hist
 
     steady = api.with_overrides(spec, {"run.steps": TRACE_WARM + MOE_STEADY})
-    hist, n, peak = run_counted(f"moe {arch} steady", steady, params)
-    check_launches(f"moe {arch} steady", steady, params, n)
+    hist, n, peak = run_counted(f"{tag} steady", steady, params,
+                                trainer=trainer(steady, params))
+    check_launches(f"{tag} steady", steady, params, n, cfg=cfg)
     secs = hist["step_seconds"][TRACE_WARM:]
     del hist
     busy, wall, idle = device_idle_share(spec, cfg, params, MOE_STEADY)
-    log(f"[moe] {arch} {MOE_STEADY} steady steps: step_seconds "
+    log(f"[{tag}] {MOE_STEADY} steady steps: step_seconds "
         f"{stats(secs)}; peak memory {peak:.2f} GiB; torch.profiler: wall "
         f"{wall:.4f} s, device busy {busy:.4f} s, idle share {idle:.4f}")
-    phase_profile(spec, cfg, params, tag=f"moe {arch} profile", ops=True)
-    return spec, cfg, params, first
+    phase_profile(spec, cfg, params, tag=f"{tag} profile", ops=True,
+                  regions=regions)
+    return cfg, params, first
 
 
 def moe_serve_mla(cfg, params, spec, rows):
@@ -2465,7 +2576,8 @@ def phase_moe(eps):
     rows = moe_parity(ds, gr, eps)
     runs = {}
     for arch in MOE_ARCHS:
-        spec, cfg, params, runs[arch] = moe_train(arch)
+        spec = moe_spec(arch)
+        cfg, params, runs[arch] = seeded_train(f"moe {arch}", spec)
         if arch == MOE_MLA:
             runs.update(moe_serve_mla(cfg, params, spec, rows))
         else:
@@ -2476,6 +2588,296 @@ def phase_moe(eps):
     for name, rs in rows.items():
         for r in rs:
             r["launches"] = runs[r["run"]][name]
+    return rows
+
+
+# The ssm phase: the zoo's recurrent archs, materialized (the reference's
+# only backend for these blocks; K3/K4 stay off the path).  xlstm-350m at
+# full width and depth; jamba-v0.1-52b at full width, cut in depth to the
+# most periods of its 8-layer pattern that one card holds for training
+# and for the lockstep prefill (its 4 periods are 96.07 GiB of bf16
+# weights), every width, head, expert, d_state and the vocabulary kept.
+SSM_XLSTM, SSM_JAMBA = "xlstm-350m", "jamba-v0.1-52b"
+SSM_PERIODS = (3, 2)                     # jamba's depths, deepest first
+SSM_DECODE = (128, 8)                    # prompt, then decode steps
+SSM_DECODE_STEPS = 16                    # decode against train, bf16 steps
+
+
+def ssm_regions():
+    """The recurrent blocks' plain-PyTorch work, labelled in a profile:
+    Mamba's chunk loop (dA/dBx and the doubling scan), one mLSTM chunk,
+    and a whole sLSTM block (its per-step loop and the projections)."""
+    from repro_torch.models import ssm
+    return {"ssm/mamba_scan": (ssm, "_mamba_scan"),
+            "ssm/mlstm_chunk": (ssm, "_mlstm_chunk"),
+            "ssm/slstm_fwd": (ssm, "slstm_fwd")}
+
+
+def ssm_parity(jb, xl, eps):
+    """Each kernel the ssm runs launch, against its plain version at
+    their shapes: K2 at jamba's GQA train shape (16, 63, 8, 4, 128) and
+    lockstep prefill (4, 1024, 8, 4, 128) (SDPA with ``enable_gqa``
+    beside); K1 on one layer's row of jamba's ``we_g`` (16 x 4096 x
+    14336 = 939,524,096 bf16) and on xlstm's float32 ``rh`` stack (3,
+    4 x 256 x 1024), every row active.  Then the plain operations where
+    a recurrent model's time goes (no TPU kernel stands behind them):
+    ``_ssm_chunk_scan`` at jamba's (16, 63, 8192, 16) and one
+    ``slstm_fwd`` at xlstm's (16, 63, 1024).  Returns the ``ssm_shapes``
+    rows by kernel."""
+    import torch
+    from repro_torch.models import ssm
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2222)
+    out = {"flash_attention": [], "zo_axpy_2d": []}
+    KV, G, dh = jb.n_kv_heads, jb.n_heads // jb.n_kv_heads, jb.head_dim
+    k2_row(out, g, "jamba", 16, 63, KV, G, dh)
+    k2_row(out, g, "lockstep_jamba", 4, 1024, KV, G, dh, reps=20)
+    k1_row(out, g, eps, "jamba", "we_g one layer's row",
+           (1, jb.n_experts * jb.d_model * jb.moe_d_ff), bf)
+    k1_row(out, g, eps, "xlstm", "rh, float32, all rows",
+           (xl.stages[0].repeat, xl.d_model * 4 * (xl.d_model // xl.n_heads)),
+           torch.float32)
+    torch.cuda.empty_cache()
+
+    Bt, St = 16, 63
+    Di, Ns = jb.mamba_d_inner, jb.mamba_d_state
+    dA = torch.rand((Bt, St, Di, Ns), generator=g, device=dev)
+    dBx = torch.randn((Bt, St, Di, Ns), generator=g, device=dev)
+    C = torch.randn((Bt, St, Ns), generator=g, device=dev)
+    h0 = torch.zeros((Bt, Di, Ns), device=dev)
+    ms = time_ms(lambda: ssm._ssm_chunk_scan(dA, dBx, C, h0), reps=3)
+    nbytes = (2 * dA.numel() + C.numel() + Bt * St * Di) * 4
+    log(f"[ssm] plain _ssm_chunk_scan at ({Bt}, {St}, {Di}, {Ns}) float32 "
+        f"(one chunk, {math.ceil(math.log2(St))} doubling steps): "
+        f"{ms:.3f} ms; its inputs read and y written once take "
+        f"{bound(nbytes)[0]:.3f} ms at the bytes rate")
+    del dA, dBx, C, h0
+    p = ssm.slstm_params(xl, g, 1, dev)
+    p = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+             else v[0]) for k, v in p.items()}
+    x = torch.randn((Bt, St, xl.d_model), generator=g, device=dev, dtype=bf)
+    fwd = lambda: ssm.slstm_fwd(xl, p, x)
+    fwd()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fwd()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    log(f"[ssm] plain slstm_fwd, one layer at ({Bt}, {St}, {xl.d_model}) "
+        f"({St} sequential steps): {wall:.3f} ms wall, "
+        f"{time_ms(fwd, reps=3):.3f} ms on the card's clock")
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_decode_check(xl, jb):
+    """The recurrence on the card at full width: for one layer of each
+    recurrent kind at its config's width (bf16, weights from a seed), a
+    128-token lockstep prefill then 8 decode steps fed the true tokens,
+    against the train forward over 256 tokens at the same 9 positions
+    (the prefill's last and the 8 steps'): within SSM_DECODE_STEPS bf16
+    steps (``bf16_steps``; the card-side counterpart of the reference's
+    ``test_decode_consistency_{mamba,xlstm}``)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.config import BlockCfg, StageCfg
+
+    P, n = SSM_DECODE
+    for kind, base in (("mamba", jb), ("mlstm", xl), ("slstm", xl)):
+        cfg = base.with_(stages=(StageCfg(1, (BlockCfg(kind, "none"),)),))
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        params = lm.init_params(cfg, gen, "cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 2 * P), generator=gen,
+                             device="cuda")
+        with torch.no_grad():
+            h = lm.forward(cfg, params, toks)
+            want = lm.logits_fn(cfg, params, h[:, P - 1:P + n])
+            first, caches = lm.prefill(cfg, params, toks[:, :P],
+                                       max_seq=P + n + 1)
+            got = [first]
+            for i in range(n):
+                lg, caches = lm.serve_step(cfg, params, caches,
+                                           toks[:, P + i:P + i + 1], P + i)
+                got.append(lg)
+        got = torch.stack(got, dim=1)
+        steps = bf16_steps(got, want)
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"[ssm] decode check, one {kind} layer at d_model "
+            f"{cfg.d_model}: prefill {P} + {n} steps against the train "
+            f"forward over {2 * P}: {steps:.2f} bf16 steps (gate "
+            f"{SSM_DECODE_STEPS}), max|err| "
+            f"{(got - want).abs().max().item():.3e}, max|logits| "
+            f"{want.abs().max().item():.3e}, argmax agreement {agree:.3f}")
+        if not bool(torch.isfinite(got).all()) or steps > SSM_DECODE_STEPS:
+            raise SystemExit(f"ssm: {kind} decode logits {steps:.2f} bf16 "
+                             f"steps from the train forward's (gate "
+                             f"{SSM_DECODE_STEPS})")
+        del params, caches, h, want, got
+    torch.cuda.empty_cache()
+
+
+def ssm_jamba_depth():
+    """The deepest cut of jamba in SSM_PERIODS whose training and
+    lockstep prefill fit the card: per depth, the weights from the seed,
+    one step of the spec and a (4, 1024) prefill; an out-of-memory there
+    is logged with its peak and the next depth tried.  Returns (cut
+    config, spec, periods)."""
+    import torch
+    from repro_torch import api, configs
+    from repro_torch.models import lm
+
+    full = configs.get(SSM_JAMBA)
+    Bl, Sl, Gl = SERVE_LOCKSTEP
+    for periods in SSM_PERIODS:
+        cut = dataclasses.replace(full, stages=(dataclasses.replace(
+            full.stages[0], repeat=periods),))
+        spec = moe_spec(SSM_JAMBA)                 # LeZO's drop at the cut
+        spec = api.with_overrides(spec, {"optimizer.n_drop": int(
+            spec.optimizer.sparsity * cut.num_layers)})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, refused = None, None
+        try:
+            params = lm.init_params(cut, torch.Generator(
+                device="cuda").manual_seed(spec.run.seed), "cuda")
+            step_fn(spec, cut, params)(0)
+            lm.prefill(cut, params, torch.zeros(
+                (Bl, Sl), dtype=torch.int64, device="cuda"), Sl + Gl + 1)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            refused = str(e).splitlines()[0]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[ssm] {SSM_JAMBA} at {periods} of 4 periods ({cut.num_layers} "
+            f"layers): a train step and a ({Bl}, {Sl}) prefill "
+            f"{'do not fit' if refused else 'fit'}; peak {peak:.2f} GiB"
+            + (f" ({refused})" if refused else ""))
+        if refused is None:
+            return cut, spec, periods
+    raise SystemExit(f"ssm: {SSM_JAMBA} fits the card at none of "
+                     f"{SSM_PERIODS} periods")
+
+
+def ssm_moe_drops(spec, cfg, params):
+    """jamba's MoE layers at ``capacity_factor`` on one train batch: the
+    assignments dropped over every MoE call of one forward."""
+    import torch
+    from repro_torch.api import runners
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm, moe
+
+    d = runners.derive(spec)
+    data = synthetic.make_dataset(d.task, 64)
+    batch = {k: torch.as_tensor(data[k][:spec.run.batch_size], device="cuda")
+             for k in ("tokens", "labels", "loss_mask")}
+    dispatch, seen = moe.dispatch, []
+
+    def tap(*a):
+        out = dispatch(*a)
+        seen.append(((~out[2]).sum(), out[2].numel()))
+        return out
+    moe.dispatch = tap
+    try:
+        loss = float(lm.lm_loss(cfg, params, batch))
+    finally:
+        moe.dispatch = dispatch
+    dropped = int(sum(int(n) for n, _ in seen))
+    total = sum(t for _, t in seen)
+    log(f"[ssm] {SSM_JAMBA} MoE at capacity_factor {cfg.capacity_factor}, "
+        f"one forward at ({spec.run.batch_size}, {batch['tokens'].shape[1]}):"
+        f" {dropped} of {total} assignments dropped over {len(seen)} MoE "
+        f"calls; loss {loss:.6f}")
+
+
+def ssm_serve(tag, cfg, params, spec):
+    """The lockstep ``generate`` (4, 1024) + 32 twice (the engine refuses
+    recurrent mixers): equal tokens, K2 launched once an attention
+    layer by the prefill; a decode step timed and profiled.  Returns
+    the first run's launches."""
+    import torch
+    from repro_torch import serving
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+
+    try:
+        serving.Engine(cfg, params, spec.serving, device="cuda")
+        raise SystemExit(f"ssm: the engine accepted {tag}")
+    except serving.EngineUnsupported:
+        pass
+    gen = torch.Generator(device="cpu").manual_seed(spec.run.seed)
+    Bl, Sl, Gl = SERVE_LOCKSTEP
+    toks = torch.randint(0, cfg.vocab, (Bl, Sl), generator=gen).cuda()
+    want = {"zo_axpy_2d": 0, "flash_attention": attention_layers(cfg),
+            "pmatmul_stack": 0, "pmatmul": 0}
+    outs = []
+    for run in ("", " again"):
+        out, n, peak, wall = counted(lambda: serve_mod.generate(
+            cfg, params, toks, Gl, max_seq=Sl + Gl + 1))
+        log(f"[ssm] {tag} lockstep generate ({Bl}, {Sl}) + {Gl}{run}: "
+            f"{wall:.3f} s, {Bl * Gl / wall:.1f} tok/s, peak {peak:.2f} GiB, "
+            f"launches {n}")
+        if n != want or tuple(out.shape) != (Bl, Gl) or not bool(
+                ((out >= 0) & (out < cfg.vocab)).all()):
+            raise SystemExit(f"ssm: {tag} lockstep launches {n} (want "
+                             f"{want}) or tokens {tuple(out.shape)}")
+        outs.append(out.tolist())
+        first = first if run else n
+    if outs[0] != outs[1]:
+        raise SystemExit(f"ssm: {tag} lockstep tokens differ between two "
+                         "runs")
+    log(f"[ssm] {tag} lockstep: the second run's {Bl * Gl} tokens equal "
+        "the first's")
+    with torch.no_grad():
+        logits, caches = lm.prefill(cfg, params, toks, max_seq=Sl + Gl + 1)
+    tok = torch.argmax(logits, -1)[:, None]
+    step = lambda: lm.serve_step(cfg, params, caches, tok, Sl)
+    ms = time_ms(step, reps=5)
+    log(f"[ssm] {tag} decode step ({Bl} lanes at {Sl}): {ms:.2f} ms on the "
+        "card's clock")
+    profile_one(f"ssm {tag}", step, f"one decode step ({Bl} lanes at {Sl})")
+    del logits, caches, tok, toks
+    return first
+
+
+def phase_ssm(eps):
+    """The zoo's recurrent archs on the card (see the module docstring);
+    returns the ``ssm_shapes`` rows by kernel, each carrying the
+    kernel's launches in the run that exercises its shape."""
+    import torch
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    log(f"[ssm] {smi('name,power.limit')}")
+    xl, jb = configs.get(SSM_XLSTM), configs.get(SSM_JAMBA)
+    rows = ssm_parity(jb, xl, eps)
+    ssm_decode_check(xl, jb)
+    runs = {}
+    spec = moe_spec(SSM_XLSTM)
+    cfg, params, runs["xlstm"] = seeded_train(f"ssm {SSM_XLSTM}", spec,
+                                              regions=ssm_regions())
+    runs["lockstep_xlstm"] = ssm_serve(SSM_XLSTM, cfg, params, spec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut, spec, periods = ssm_jamba_depth()
+    tag = f"{SSM_JAMBA} at {periods} periods"
+    cfg, params, runs["jamba"] = seeded_train(f"ssm {tag}", spec, cfg=cut,
+                                              regions=ssm_regions())
+    ssm_moe_drops(spec, cfg, params)
+    runs["lockstep_jamba"] = ssm_serve(tag, cfg, params, spec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            r["launches"] = runs[r["run"]][name]
+    log(f"[ssm] phase {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -3182,7 +3584,7 @@ SOURCES = {
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
           "replay", "estimators", "momentum", "tasks", "peft", "serve", "zoo",
-          "moe", "fo", "resume", "swarm")
+          "moe", "ssm", "fo", "resume", "swarm")
 
 
 def main() -> int:
@@ -3256,6 +3658,9 @@ def main() -> int:
     if "moe" in phases:
         for name, shapes in phase_moe(spec.optimizer.eps).items():
             rows.setdefault(name, {})["moe_shapes"] = shapes
+    if "ssm" in phases:
+        for name, shapes in phase_ssm(spec.optimizer.eps).items():
+            rows.setdefault(name, {})["ssm_shapes"] = shapes
     if "fo" in phases:
         phase_fo(cfg)
     if "resume" in phases:

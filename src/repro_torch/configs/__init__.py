@@ -1,13 +1,14 @@
 """Architecture registry of the port: the OPT entries, the dense
-``attn + dense`` model zoo and its MoE/MLA configs (granite-moe,
-deepseek-v2-lite) of ``repro/configs/__init__.py``.  The SSM
-architectures (jamba, xlstm) are not yet ported; ``api/validate.py``
-names them so."""
+``attn + dense`` model zoo, its MoE/MLA configs (granite-moe,
+deepseek-v2-lite) and its recurrent ones (jamba, xlstm) of
+``repro/configs/__init__.py``."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = {
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "xlstm-350m": "xlstm_350m",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "internlm2-1.8b": "internlm2_1_8b",

@@ -12,6 +12,13 @@ dict tree::
     stages.s{i}.b{j}.mix.{norm.*, wq, wdkv, kv_norm.scale, wuk, wuv,
                           wo}                                  # mla
     stages.s{i}.b{j}.ffn.{norm.*, wg, wu | wi, wd}               # dense
+    stages.s{i}.b{j}.mix.{norm.*, in_proj, conv_w, conv_b, x_proj, dt_w,
+                          dt_b, A_log, Dskip, out_proj}        # mamba
+    stages.s{i}.b{j}.mix.{norm.*, in_proj, conv_w, conv_b, wq, wk, wv,
+                          wif, b_i, b_f, out_norm.scale,
+                          out_proj}                            # mlstm
+    stages.s{i}.b{j}.mix.{norm.*, wx, rh, b, out_norm.scale,
+                          out_proj}                            # slstm
     stages.s{i}.b{j}.ffn.{norm.*, router, we_g, we_u, we_d[, ws_g, ws_u,
                           ws_d]}                               # moe
 
@@ -24,7 +31,9 @@ stacked leaf without a copy.
 Serving (DESIGN.md §12): ``prefill``/``serve_step`` run the lockstep
 path over a cache ``init_cache`` makes, (R, B, Smax, KV, dh) per
 ``s{i}/b{j}`` leaf of an attn block and the latent (R, B, Smax,
-kv_lora) and (R, B, Smax, dr) of an MLA block; ``paged_step`` runs one
+kv_lora) and (R, B, Smax, dr) of an MLA block, and the fixed-size
+states of the recurrent blocks (Mamba, mLSTM, sLSTM), whatever
+``Smax``; ``paged_step`` runs one
 bucketed call of the continuous-batching engine over the arena
 ``init_paged_cache`` makes, (R, n_pages, page_size, KV, dh) per leaf
 (attn mixers only, MoE FFNs included).  Both layouts are the
@@ -53,7 +62,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.core import zo
 from repro_torch.fused import ref as fused_ref
-from repro_torch.models import frontends, layers, moe
+from repro_torch.models import frontends, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
@@ -100,29 +109,31 @@ class LM(ParamNode):
         self.cfg = cfg
 
 
-MIXERS = ("attn", "mla")
-FFNS = ("dense", "moe")
+MIXER_PARAMS = {"attn": layers.attn_params, "mla": layers.mla_params,
+                "mamba": ssm.mamba_params, "mlstm": ssm.mlstm_params,
+                "slstm": ssm.slstm_params}
+FFNS = ("dense", "moe", "none")
 
 
 def _check_supported(cfg: ModelConfig):
-    """The port runs ``attn``/``mla`` mixers with ``dense``/``moe`` FFNs
-    (OPT, the dense zoo, granite-moe, deepseek-v2-lite); the SSM mixers
-    are not yet ported."""
+    """The port runs every block of the reference's zoo: ``attn``/``mla``
+    and the recurrent ``mamba``/``mlstm``/``slstm`` mixers with
+    ``dense``/``moe`` FFNs or none."""
     for st in cfg.stages:
         for b in st.pattern:
-            if b.kind not in MIXERS or b.ffn not in FFNS:
-                raise NotImplementedError(
-                    f"{b.kind}+{b.ffn} blocks are not yet ported")
+            if b.kind not in MIXER_PARAMS or b.ffn not in FFNS:
+                raise ValueError(f"unknown block {b.kind}+{b.ffn}")
 
 
 def _block_params(cfg: ModelConfig, b, gen, L, device):
     """One (stage, pattern position)'s leaves by its kinds, stacked over
-    the stage's ``L`` repeats (the reference's ``_block_params``)."""
-    mix = (layers.attn_params if b.kind == "attn" else layers.mla_params)
-    out = {"mix": mix(cfg, gen, L, device)}       # drawn first, then ffn
-    out["ffn"] = (layers.ffn_params(cfg, gen, L, device, d_ff=b.d_ff)
-                  if b.ffn == "dense" else moe.moe_params(cfg, gen, L,
-                                                          device))
+    the stage's ``L`` repeats (the reference's ``_block_params``): the
+    mixer drawn first, then the FFN; no ``ffn`` for ``"none"``."""
+    out = {"mix": MIXER_PARAMS[b.kind](cfg, gen, L, device)}
+    if b.ffn == "dense":
+        out["ffn"] = layers.ffn_params(cfg, gen, L, device, d_ff=b.d_ff)
+    elif b.ffn == "moe":
+        out["ffn"] = moe.moe_params(cfg, gen, L, device)
     return out
 
 
@@ -153,10 +164,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> LM:
     return LM(cfg, tree)
 
 
+# the recurrent mixers' float32 leaves (``conv_b`` takes cfg.dtype)
+F32_MIX_LEAVES = ("A_log", "Dskip", "dt_b", "b", "b_i", "b_f", "rh")
+
+
 def _leaf_dtype(cfg: ModelConfig, path: str) -> torch.dtype:
-    """Norm leaves (``kv_norm`` too) and the MoE router are float32 in
-    the reference; the rest take cfg.dtype."""
-    if "norm/" in path or path.endswith("/router"):
+    """Norm leaves (``kv_norm`` and ``out_norm`` too), the MoE router
+    and the recurrent mixers' decays, skips, gate biases and sLSTM's
+    ``rh`` are float32 in the reference; the rest take cfg.dtype."""
+    parent, _, name = path.rpartition("/")
+    if ("norm/" in path or name == "router"
+            or (parent.endswith("/mix") and name in F32_MIX_LEAVES)):
         return F32
     return getattr(torch, cfg.dtype)
 
@@ -283,9 +301,25 @@ def count_active_params(cfg: ModelConfig, params) -> int:
 
 
 # --------------------------------------------------------------- forward
+def _recurrent(cfg, b, p, x, mode="train", cache=None, pos=0, pages=None):
+    """A recurrent mixer's output; in prefill and decode its new state
+    is copied into ``cache`` (this layer's views) in place."""
+    if mode == "paged":
+        raise NotImplementedError(
+            f"paged serving covers attn mixers only; got {b.kind!r} (use "
+            "the lockstep serve path)")
+    fwd = {"mamba": ssm.mamba_fwd, "mlstm": ssm.mlstm_fwd,
+           "slstm": ssm.slstm_fwd}[b.kind]
+    out, new = fwd(cfg, p, x, mode=mode, cache=cache, pos=pos)
+    if new is not None:
+        for name, t in new.items():
+            cache[name].copy_(t)
+    return out
+
+
 def _run_block(cfg, b, p, x, pc=None, **mix_kw):
     """One block by its kinds: (x, aux), ``aux`` the MoE FFN's
-    load-balance term or None for a dense FFN."""
+    load-balance term or None for a dense FFN or none."""
     if pc is not None and (b.kind != "attn" or b.ffn == "moe"):
         raise NotImplementedError(
             f"virtual perturbation covers attn + dense blocks; got "
@@ -294,12 +328,16 @@ def _run_block(cfg, b, p, x, pc=None, **mix_kw):
         x = x + layers.attn_fwd(cfg, p["mix"], x,
                                 pc=None if pc is None else pc.child("mix"),
                                 **mix_kw)
-    else:
+    elif b.kind == "mla":
         mix_kw.pop("pages", None)
         x = x + layers.mla_fwd(cfg, p["mix"], x, **mix_kw)
+    else:
+        x = x + _recurrent(cfg, b, p["mix"], x, **mix_kw)
     if b.ffn == "moe":
         y, aux = moe.moe_fwd(cfg, p["ffn"], x)
         return x + y, aux
+    if b.ffn == "none":
+        return x, None
     return x + layers.ffn_fwd(cfg, p["ffn"], x,
                               pc=None if pc is None else pc.child("ffn")), None
 
@@ -472,13 +510,20 @@ def lm_loss(cfg: ModelConfig, params: LM, batch, aux_coef=0.0,
 
 
 # ---------------------------------------------------------------- serving
-def _cache_tree(cfg: ModelConfig, shapes_of, dtype, device):
-    """Zeros of ``shapes_of(block, R)`` ({leaf: shape}) per stage-block."""
+def _cache_tree(cfg: ModelConfig, leaves_of, dtype, device):
+    """Per stage-block, the leaves ``leaves_of(block, R)`` gives: {leaf:
+    shape} (zeros in ``dtype``, default ``cfg.dtype``) or {leaf: (shape,
+    torch dtype, fill)}."""
     dt = getattr(torch, dtype or cfg.dtype)
     dev = resolve_device(device)
+
+    def make(spec):
+        shape, ldt, fill = spec if isinstance(spec[0], tuple) else (
+            spec, dt, 0.0)
+        return torch.full(shape, fill, dtype=ldt, device=dev)
     return {f"s{si}": {
-        f"b{bj}": {name: torch.zeros(shape, dtype=dt, device=dev)
-                   for name, shape in shapes_of(b, st.repeat).items()}
+        f"b{bj}": {name: make(spec)
+                   for name, spec in leaves_of(b, st.repeat).items()}
         for bj, b in enumerate(st.pattern)}
         for si, st in enumerate(cfg.stages)}
 
@@ -486,19 +531,41 @@ def _cache_tree(cfg: ModelConfig, shapes_of, dtype, device):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None):
     """An empty lockstep cache for ``forward(mode='prefill'|'decode')``,
-    per stage-block: {"k", "v"} zeros of (R, batch, max_seq, KV, dh) for
-    an attn mixer, {"ckv": (R, batch, max_seq, kv_lora), "kr": (R,
-    batch, max_seq, dr)} for MLA, on ``device`` (None: the card)."""
+    per stage-block, on ``device`` (None: the card): {"k", "v"} zeros of
+    (R, batch, max_seq, KV, dh) for an attn mixer, {"ckv": (R, batch,
+    max_seq, kv_lora), "kr": (R, batch, max_seq, dr)} for MLA; the
+    recurrent blocks' fixed-size states as the reference lays them out:
+    Mamba {"conv" (R, batch, K-1, Di), "ssm" (R, batch, Di, St) f32},
+    mLSTM {"conv" (R, batch, 3, Di), "C" (R, batch, H, dh, dh), "n" (R,
+    batch, H, dh), "m" (R, batch, H)} and sLSTM {"c", "n", "h", "m"}
+    (R, batch, H, dh), their float32 states zeros but the stabilizers
+    ``m`` at -inf; the conv tails take ``dtype``."""
     _check_supported(cfg)
-    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    KV, dh, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    ninf = float("-inf")
 
-    def shapes(b, R):
+    def leaves(b, R):
         if b.kind == "mla":
             return {"ckv": (R, batch, max_seq, cfg.kv_lora),
                     "kr": (R, batch, max_seq, cfg.rope_head_dim)}
+        if b.kind == "mamba":
+            Di = cfg.mamba_d_inner
+            return {"conv": (R, batch, cfg.mamba_conv - 1, Di),
+                    "ssm": ((R, batch, Di, cfg.mamba_d_state), F32, 0.0)}
+        if b.kind == "mlstm":
+            Di = cfg.lstm_d_inner
+            d = Di // H
+            return {"conv": (R, batch, 3, Di),
+                    "C": ((R, batch, H, d, d), F32, 0.0),
+                    "n": ((R, batch, H, d), F32, 0.0),
+                    "m": ((R, batch, H), F32, ninf)}
+        if b.kind == "slstm":
+            s = (R, batch, H, cfg.d_model // H)
+            return {"c": (s, F32, 0.0), "n": (s, F32, 0.0),
+                    "h": (s, F32, 0.0), "m": (s, F32, ninf)}
         return {"k": (R, batch, max_seq, KV, dh),
                 "v": (R, batch, max_seq, KV, dh)}
-    return _cache_tree(cfg, shapes, dtype, device)
+    return _cache_tree(cfg, leaves, dtype, device)
 
 
 def serve_step(cfg: ModelConfig, params, caches, token, pos: int):

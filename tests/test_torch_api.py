@@ -38,10 +38,22 @@ def test_preset_json_identical(name):
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_unported_fields_raise(override, path):
+    """``path`` is the field the case sets.  A mesh is not yet ported.
+    The recurrent archs are: they validate on the preset's materialized
+    forward backend and, as in the reference, raise at
+    ``runtime.forward_backend`` under the virtual one."""
     spec = tapi.with_overrides(tapi.preset("lezo-opt13b"), override)
-    with pytest.raises(tapi.SpecError, match="not yet ported") as e:
-        tapi.validate(spec)
-    assert e.value.path == path
+    if path == "runtime.mesh":
+        with pytest.raises(tapi.SpecError, match="not yet ported") as e:
+            tapi.validate(spec)
+        assert e.value.path == path
+        return
+    assert spec.runtime.forward_backend == "materialized"
+    assert tapi.validate(spec).name.startswith(override[path][:5])
+    with pytest.raises(tapi.SpecError, match="materialized") as e:
+        tapi.validate(tapi.with_overrides(
+            spec, {"runtime.forward_backend": "virtual"}))
+    assert e.value.path == "runtime.forward_backend"
 
 
 @pytest.mark.parametrize("override", [

@@ -604,27 +604,47 @@ def test_materialized_spec_validates_and_runs(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_ssm_archs_still_unported(arch):
+    """The SSM archs (ported since) resolve in the port to the
+    reference's config on the preset's materialized backend; the
+    virtual one raises at ``runtime.forward_backend``."""
     assert arch in jconfigs.list_archs()
-    assert arch not in tconfigs.list_archs()
-    spec = tapi.with_overrides(tapi.preset("lezo-opt13b"),
-                               {"model.arch": arch})
-    with pytest.raises(tapi.SpecError, match="not yet ported"):
-        tapi.validate(spec)
+    assert arch in tconfigs.list_archs()
+    over = {"model.arch": arch}
+    assert dataclasses.asdict(tapi.validate(tapi.with_overrides(
+        tapi.preset("lezo-opt13b"), over))) == dataclasses.asdict(
+        japi.validate(japi.with_overrides(japi.preset("lezo-opt13b"), over)))
+    with pytest.raises(tapi.SpecError, match="materialized") as e:
+        tapi.validate(tapi.with_overrides(tapi.preset("lezo-opt13b"), {
+            **over, "runtime.forward_backend": "virtual"}))
+    assert e.value.path == "runtime.forward_backend"
 
 
 def test_ssm_blocks_refused_by_the_model():
+    """Each recurrent kind (with an MoE FFN, as jamba's odd layers) is
+    built by the model, but the virtual ``pc`` path refuses it, naming
+    the materialized backend, as the reference's ``_run_block`` does."""
+    from repro_torch import fused as tfused
     from repro_torch.models.config import BlockCfg, StageCfg
     tc = tconfigs.get("granite-moe-1b-a400m", "smoke")
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    batch = {"tokens": toks, "labels": toks,
+             "loss_mask": torch.ones((1, 4))}
     for kind in ("mamba", "mlstm", "slstm"):
         cfg = tc.with_(stages=(StageCfg(1, (BlockCfg(kind, "moe"),)),))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tlm.init_params(cfg, torch.Generator(), "cpu")
+        params = tlm.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        assert torch.isfinite(tlm.lm_loss(cfg, params, batch))
+        ctx = tfused.make_ctx(SEED, EPS, {"s0.b0": torch.tensor([True])},
+                              "virtual_ref")
+        with pytest.raises(NotImplementedError, match="materialized"):
+            tlm.lm_loss(cfg, params, batch, perturb=ctx)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + UNPORTED)
 def test_configs_match_reference(arch):
-    """Every field of both variants equals the reference's; deepseek's
-    head_dim resolves to 128 (+ 64 rope) at full size."""
+    """Every field of both variants equals the reference's (the MoE/MLA
+    archs and the recurrent ones); deepseek's head_dim resolves to 128
+    (+ 64 rope) at full size."""
     for variant in ("full", "smoke"):
         assert dataclasses.asdict(tconfigs.get(arch, variant)) == \
             dataclasses.asdict(jconfigs.get(arch, variant)), variant

@@ -468,10 +468,20 @@ def test_validator_accepts_presets(name):
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_validator_still_rejects_unported(override, path):
+    """``path`` is the field the case sets.  A mesh is still refused as
+    not yet ported; the recurrent archs are ported, and the FO preset on
+    them validates to the reference's config, as the reference's
+    validator accepts it."""
     spec = tapi.with_overrides(tapi.preset("fo-opt13b"), override)
-    with pytest.raises(tapi.SpecError, match="not yet ported") as e:
-        tapi.validate(spec)
-    assert e.value.path == path
+    if path == "runtime.mesh":
+        with pytest.raises(tapi.SpecError, match="not yet ported") as e:
+            tapi.validate(spec)
+        assert e.value.path == path
+        return
+    want = japi.validate(japi.with_overrides(japi.preset("fo-opt13b"),
+                                             override))
+    assert dataclasses.asdict(tapi.validate(spec)) == \
+        dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("override,path", [

@@ -458,9 +458,21 @@ def test_full_configs_match_assignment():
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_archs_rejected(arch):
+    """The recurrent archs, once the zoo's last unported ids, are in the
+    port's registry with the reference's configs; they validate on the
+    preset's materialized backend, and the virtual backend is refused
+    for them at ``runtime.forward_backend``, as the reference refuses
+    it."""
     assert arch in jconfigs.list_archs()
-    assert arch not in tconfigs.list_archs()
+    assert arch in tconfigs.list_archs()
+    assert sorted(tconfigs.list_archs()) == sorted(jconfigs.list_archs())
+    for variant in ("full", "smoke"):
+        assert dataclasses.asdict(tconfigs.get(arch, variant)) == \
+            dataclasses.asdict(jconfigs.get(arch, variant)), variant
     spec = tapi.with_overrides(tapi.preset("lezo-opt13b"),
                                {"model.arch": arch})
-    with pytest.raises(tapi.SpecError, match="not yet ported"):
-        tapi.validate(spec)
+    assert tapi.validate(spec) == tconfigs.get(arch, spec.model.variant)
+    with pytest.raises(tapi.SpecError, match="materialized") as e:
+        tapi.validate(tapi.with_overrides(
+            spec, {"runtime.forward_backend": "virtual"}))
+    assert e.value.path == "runtime.forward_backend"
