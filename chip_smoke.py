@@ -213,6 +213,32 @@ when it fails:
              the crash.  Wall times, steps a second, steady bytes a step
              beside 4·|θ| for an FO gradient exchange, each worker's
              peak memory.
+20. mesh   — the mesh layer at OPT-13B full width and depth (B 16,
+             S 63), once no earlier weights are held.  ``make_zo_step``
+             (the dry run's ``optimized`` config with the sweeps on K1,
+             ``backend=pallas``; n_drop 30) 4 steps plain, then the same
+             function over a 1 x 1 DTensor mesh on a one-rank NCCL group
+             (``launch/specs.py::build_train_step``, leaves placed by
+             ``distributed/sharding.py``): losses, projected gradients and
+             every leaf's bit sum equal, K1/K2 launches as reckoned (K1 a
+             leaf a sweep, K2 a layer a forward).  2 + 10 steady mesh
+             steps: median wall against the plain step's (DTensor's host
+             cost), device time and idle share (``torch.profiler``), peak
+             memory; beside them the dry run of the same step on a fake
+             1 x 1 mesh: device time must be at or above max(compute_s,
+             memory_s), the predicted peak (arguments + temporaries)
+             within +-10 % of the measured one, ``useful_flop_ratio`` at
+             most 1.05.  K3 at fc1/fc2 and K4 at the tied head split into
+             2, 4, 8 and 16 shards on N (``col_off``, ``ld = N``) and on K
+             (``row_off``), launched shard after shard: column shards
+             bit-equal to the unsharded launch's columns, row partial sums
+             within n + 1 bf16 steps of it, each shard within one step of
+             the plain ``pmatmul`` at its window, a shard's time against
+             the unsharded time / n (the ``mesh_shapes`` rows).  Last, the
+             grid entry point ``python -m repro_torch.launch dryrun --arch
+             opt-13b`` at ``train_4k`` and ``decode_32k`` on the fake
+             16 x 16 mesh: each cell's terms, dominant term and per-device
+             GiB, and its seconds.
 
 For a quick kernel check: ``--phases build,rng,parity``.
 
@@ -223,6 +249,7 @@ when CUDA is unavailable or the port's sources are missing.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -2260,6 +2287,8 @@ def params_digest(params):
     from repro_torch.core import zo
     out = {}
     for path, t in zo.leaf_items(params):
+        if hasattr(t, "to_local"):           # a leaf placed on a mesh
+            t = t.to_local()
         bits = t.detach().reshape(-1).view(
             torch.int16 if t.element_size() == 2 else torch.int32)
         out[path] = sum(int(bits[i:i + DIGEST_CHUNK].sum(dtype=torch.int64))
@@ -3347,6 +3376,316 @@ def phase_swarm(full):
     return parity
 
 
+MESH_STEPS, MESH_WARM, MESH_STEADY = 4, 2, 10
+MESH_SPLITS = (2, 4, 8, 16)
+MESH_PEAK_GATE = 0.10         # predicted peak within +-10 % of measured
+MESH_USEFUL_GATE = 1.05
+
+
+def mesh_zcfg(cfg):
+    """The dry run's ``optimized`` lowering (stratified, gather, fused
+    update, n_drop = 0.75 L = 30) with the sweeps on K1: the port's gather
+    backend is plain PyTorch, so ``pallas`` is the backend that runs K1
+    per local shard."""
+    import dataclasses
+    from repro_torch.launch import specs
+    return dataclasses.replace(specs.zo_variant(cfg, "optimized"),
+                               backend="pallas")
+
+
+def mesh_batch(cfg, B=16, S=63):
+    """The main path's shape: B 16 sequences of S 63 inputs, seeded."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(7)
+    toks = torch.as_tensor(r.integers(0, cfg.vocab, (B, S + 1)),
+                           dtype=torch.int32, device="cuda")
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous(),
+            "loss_mask": torch.ones((B, S), device="cuda")}
+
+
+def mesh_run(tag, step, params, batch, steps, start=0):
+    """``steps`` steps of ``step`` from ``start``: (losses, projected
+    grads, per-step walls), each step synchronised."""
+    import torch
+    losses, grads, walls = [], [], []
+    for t in range(start, start + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, m = step(params, batch, t, 0xC0FFEE)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        grads.append(float(m["projected_grad"]))
+    if not all(map(math.isfinite, losses)):
+        raise SystemExit(f"mesh {tag}: losses not finite: {losses}")
+    return losses, grads, walls
+
+
+def mesh_shard_windows(cfg, eps):
+    """K3 at fc1 (D, F) and fc2 (F, D) and K4 at the tied head tok.T (D, V)
+    split into n shards on N (column: ``col_off``, ``ld = N``) and on K
+    (row: ``row_off``; partial sums added in float32), launched one shard
+    after another at the main path's activations.  Column shards must
+    equal the unsharded launch's columns bit for bit, row sums sit within
+    n + 1 bf16 steps of it, and every shard within ``close``'s one step
+    of the plain ``pmatmul`` at its window.  Returns the rows."""
+    import torch
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+
+    dev, bf = "cuda", torch.bfloat16
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    M = 16 * 63
+    g = torch.Generator(device=dev).manual_seed(11)
+    seed = 0x5EED
+    out = []
+    mats = (("fc1", D, F, False), ("fc2", F, D, False), ("head", D, V, True))
+    for name, K, N, head in mats:
+        if head:
+            tok = torch.randn((V, D), generator=g, device=dev, dtype=bf) * .02
+            w = tok.T
+            x = torch.randn((M, K), generator=g, device=dev, dtype=bf)
+            fn, pfn = fmm.pmatmul, fref.pmatmul
+            args, kw = (seed, eps, True), dict(trans=True, ld=D)
+        else:
+            w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * .02
+            x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
+            fn, pfn = fmm.pmatmul_stack, fref.pmatmul_stack
+            args, kw = ((seed, seed), (eps, -eps), (True, True)), {}
+        full = fn(x, w, *args, **kw)
+        full_ms = time_ms(lambda: fn(x, w, *args, **kw))
+        for split in ("column", "row"):
+            for n in MESH_SPLITS:
+                size = (N if split == "column" else K) // n
+                parts, worst, same = [], 0.0, True
+                routes = set()
+                for r in range(n):
+                    if split == "column":
+                        wr, xr = w[:, r * size:(r + 1) * size], x
+                        skw = dict(kw, col_off=r * size,
+                                   ld=kw.get("ld", N))
+                    else:
+                        wr = w[r * size:(r + 1) * size]
+                        xr = x[..., r * size:(r + 1) * size]
+                        skw = dict(kw, row_off=r * size, ld=kw.get("ld", N))
+                    before = {k: c.launches
+                              for k, c in fmm.route_counters.items()}
+                    got = fn(xr, wr, *args, **skw)
+                    routes |= {k for k, c in fmm.route_counters.items()
+                               if c.launches > before[k]}
+                    worst = max(worst, close(
+                        got, pfn(xr, wr, *args, **skw),
+                        f"{name} {split} shard {r}/{n}"))
+                    if split == "column":
+                        same &= torch.equal(
+                            got.view(torch.int16),
+                            full[..., r * size:(r + 1) * size].contiguous()
+                            .view(torch.int16))
+                    parts.append(got)
+                    del got
+                if split == "column":
+                    if not same:
+                        close(torch.cat(parts, -1), full,
+                              f"{name} column x{n} concatenated")
+                    gap = 0.0
+                else:
+                    total = sum(p.float() for p in parts)
+                    gap = bf16_steps(total, full.float())
+                    if gap > n + 1:
+                        raise SystemExit(f"mesh: {name} row x{n} partial "
+                                         f"sums {gap:.2f} bf16 steps from "
+                                         f"the unsharded launch (gate "
+                                         f"{n + 1})")
+                r0 = r * size if split == "row" else 0
+                c0 = r * size if split == "column" else 0
+                ms = time_ms(lambda: fn(xr, wr, *args, **skw))
+                out.append({"matrix": f"{name} ({K}, {N})", "split": split,
+                            "n": n, "shard_route": sorted(routes),
+                            "column_bit_equal": same if split == "column"
+                            else None,
+                            "row_sum_bf16_steps": gap if split == "row"
+                            else None,
+                            "max_abs_err_vs_plain": worst,
+                            "shard_ms": ms, "unsharded_ms_over_n":
+                            full_ms / n, "last_window": [r0, c0]})
+                log(f"[mesh] {name} ({K}, {N}) {split} x{n}: shards "
+                    f"within 1 bf16 step of plain (max|err| {worst:.3e}); "
+                    + (f"concatenated bit-equal to unsharded: {same}"
+                       if split == "column" else
+                       f"partial sums {gap:.2f} bf16 steps from unsharded")
+                    + f"; routes {sorted(routes)}; shard {ms:.4f} ms vs "
+                    f"unsharded/n {full_ms / n:.4f} ms")
+                del parts
+        del w, x, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_grid():
+    """``python -m repro_torch.launch dryrun`` for opt-13b at train_4k and
+    decode_32k on the fake 16 x 16 mesh (no card): each cell's line."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for shape in ("train_4k", "decode_32k"):
+            t = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch", "dryrun",
+                 "--arch", "opt-13b", "--shape", shape, "--out", tmp],
+                capture_output=True, text=True, cwd=ROOT, env=env,
+                timeout=300)
+            secs = time.perf_counter() - t
+            cell = [ln for ln in r.stdout.splitlines() if ln.startswith("[")]
+            if r.returncode or not cell:
+                raise SystemExit(f"mesh: dryrun {shape} failed:\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+            with open(os.path.join(
+                    tmp, f"opt-13b_{shape}_sp_optimized.json")) as f:
+                rec = json.load(f)
+            log(f"[mesh] grid {cell[0]}; per device: args "
+                f"{rec['memory']['argument_bytes'] / 2 ** 30:.3f} GiB, temp "
+                f"{rec['memory']['temp_bytes'] / 2 ** 30:.3f} GiB; "
+                f"{secs:.1f} s")
+
+
+def phase_mesh(eps):
+    """The mesh layer on the card at OPT-13B full width and depth (see the
+    module docstring); returns the shard-window rows by kernel."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.core import zo
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = configs.get("opt-13b")
+    zcfg = mesh_zcfg(cfg)
+    batch = mesh_batch(cfg)
+    fresh = lambda: lm.init_params(  # noqa: E731
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    L, A = cfg.num_layers, attention_layers(cfg)
+
+    # 1. the plain step, then the same function over a 1 x 1 mesh
+    params = fresh()
+    leaves = len(zo.leaf_items(params))
+    plain = zo.make_zo_step(functools.partial(lm.lm_loss, cfg),
+                            zo.build_spec(params, lm.zo_group_fn), zcfg)
+    (pl_l, pl_g, _), n_plain, _, _ = counted(
+        lambda: mesh_run("plain", plain, params, batch, MESH_STEPS))
+    pl_digest = params_digest(params)
+    _, _, pl_walls = mesh_run("plain steady", plain, params, batch,
+                              MESH_WARM + MESH_STEADY, start=MESH_STEPS)
+    del params, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    port = 29400 + os.getpid() % 1000
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        step, _ = specs.build_train_step(cfg, mesh, zcfg=zcfg)
+        params = sharding.params_sharding(cfg, fresh(), mesh)
+        placed = sharding.batch_sharding(batch, mesh)
+        (me_l, me_g, _), n_mesh, _, _ = counted(
+            lambda: mesh_run("mesh", step, params, placed, MESH_STEPS))
+        me_digest = params_digest(params)
+        want = {"zo_axpy_2d": leaves * 3 * MESH_STEPS,
+                "flash_attention": 2 * A * MESH_STEPS,
+                "pmatmul_stack": 0, "pmatmul": 0}
+        same = (me_l == pl_l and me_g == pl_g and me_digest == pl_digest)
+        log(f"[mesh] 1 x 1 mesh step vs plain step, {MESH_STEPS} steps of "
+            f"OPT-13B (B 16, S 63, {zcfg}): losses {me_l} vs {pl_l}; "
+            f"projected grads equal {me_g == pl_g}; {leaves} leaf digests "
+            f"equal {me_digest == pl_digest}; launches mesh {n_mesh}, plain "
+            f"{n_plain}, reckoned {want}")
+        if not same:
+            raise SystemExit("mesh: the 1 x 1 mesh step is not the plain "
+                             "step bit for bit")
+        if n_mesh != want or n_plain != want:
+            raise SystemExit(f"mesh: launches {n_mesh} / {n_plain} != "
+                             f"reckoned {want}")
+
+        # 2. steady mesh steps: wall, device time, idle share, peak
+        mesh_run("mesh warm", step, params, placed, MESH_WARM,
+                 start=MESH_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, walls = mesh_run("mesh steady", step, params, placed,
+                                   MESH_STEADY,
+                                   start=MESH_STEPS + MESH_WARM)
+        peak = torch.cuda.max_memory_allocated()
+        busy = 0.0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                us = getattr(e, "self_device_time_total", None)
+                busy += (e.self_cuda_time_total if us is None else us) / 1e6
+        if busy == 0:
+            raise SystemExit("mesh: the profile holds no device time")
+        dev_s = busy / MESH_STEADY
+        wall = statistics.median(walls)
+        plain_wall = statistics.median(pl_walls[MESH_WARM:])
+        del params, placed, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # the dry run's prediction for the same function at the same shape
+    try:
+        rec = dryrun.run_cell("opt-13b", ShapeCfg("mesh_main", 63, 16,
+                                                  "train"),
+                              False, mesh_shape=(1, 1), zcfg=zcfg,
+                              verbose=False)
+    finally:
+        dist.destroy_process_group()            # the dry run's fake group
+    terms, mem = rec["roofline"], rec["memory"]
+    pred_peak = mem["argument_bytes"] + mem["temp_bytes"]
+    floor = max(terms["compute_s"], terms["memory_s"])
+    log(f"[mesh] {smi('name,power.limit')}: measured over {MESH_STEADY} "
+        f"steady mesh steps: wall median {wall:.4f} s (plain step "
+        f"{plain_wall:.4f} s: DTensor dispatch adds {wall - plain_wall:+.4f} "
+        f"s, x{wall / plain_wall:.3f}), device {dev_s:.4f} s a step, idle "
+        f"share {1 - busy / sum(walls):.4f}, peak "
+        f"{peak / 2 ** 30:.3f} GiB")
+    log(f"[mesh] dry run of the same step on a fake 1 x 1 mesh "
+        f"({rec['compile_s']} s, H100 SXM 700 W figures): compute "
+        f"{terms['compute_s']:.6f} s, memory {terms['memory_s']:.6f} s, "
+        f"collective {terms['collective_s']:.6f} s; flops "
+        f"{terms['hlo_flops']:.4e}, bytes {terms['hlo_bytes']:.4e}, kernels "
+        f"{terms['kernels']}; peak args {mem['argument_bytes'] / 2 ** 30:.3f}"
+        f" + temp {mem['temp_bytes'] / 2 ** 30:.3f} = "
+        f"{pred_peak / 2 ** 30:.3f} GiB; useful_flop_ratio "
+        f"{rec['useful_flop_ratio']:.4f}")
+    log(f"[mesh] side by side: device {dev_s:.6f} s >= roofline "
+        f"{floor:.6f} s ({dev_s / floor:.2f}x); peak predicted "
+        f"{pred_peak / 2 ** 30:.3f} vs measured {peak / 2 ** 30:.3f} GiB "
+        f"({pred_peak / peak - 1:+.2%}, gate +-{MESH_PEAK_GATE:.0%})")
+    if dev_s < floor:
+        raise SystemExit("mesh: the card beat the dry run's roofline: the "
+                         "counter lost work")
+    if abs(pred_peak / peak - 1) > MESH_PEAK_GATE:
+        raise SystemExit("mesh: predicted peak outside the gate")
+    if rec["useful_flop_ratio"] > MESH_USEFUL_GATE:
+        raise SystemExit("mesh: useful_flop_ratio above 1.05")
+
+    # 3. K3/K4 per shard at full width
+    rows = mesh_shard_windows(cfg, eps)
+    # 4. the grid entry point
+    mesh_grid()
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"pmatmul_stack": [r for r in rows if r["matrix"][:4] != "head"],
+            "pmatmul": [r for r in rows if r["matrix"][:4] == "head"]}
+
+
 TRACE_STEPS, TRACE_WARM = 20, 2     # steady steps, warm-up steps
 
 
@@ -3584,7 +3923,7 @@ SOURCES = {
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
           "replay", "estimators", "momentum", "tasks", "peft", "serve", "zoo",
-          "moe", "ssm", "fo", "resume", "swarm")
+          "moe", "ssm", "fo", "resume", "swarm", "mesh")
 
 
 def main() -> int:
@@ -3671,6 +4010,9 @@ def main() -> int:
             "swarm.workers": 2}))
         for name, shapes in parity.items():
             rows.setdefault(name, {})["swarm_shapes"] = shapes
+    if "mesh" in phases:
+        for name, shapes in phase_mesh(spec.optimizer.eps).items():
+            rows.setdefault(name, {})["mesh_shapes"] = shapes
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows.get(name, {})

@@ -12,7 +12,8 @@ A spec JSON written by ``repro.api.to_json`` runs unchanged here.
 """
 from repro_torch.api import presets
 from repro_torch.api.presets import PRESETS
-from repro_torch.api.runners import Derived, derive, evaluate, run, sweep
+from repro_torch.api.runners import (Derived, derive, dryrun, dryrun_cell,
+                                     evaluate, run, sweep)
 from repro_torch.api.spec import (Experiment, Estimator, Model, Optimizer,
                                   Run, Runtime, Serving, SpecError, Swarm,
                                   Task, Telemetry, check_resume_spec,
@@ -22,7 +23,8 @@ from repro_torch.api.validate import validate
 
 __all__ = ["Derived", "Estimator", "Experiment", "Model", "Optimizer",
            "PRESETS", "Run", "Runtime", "Serving", "SpecError", "Swarm",
-           "Task", "Telemetry", "check_resume_spec", "derive", "evaluate",
+           "Task", "Telemetry", "check_resume_spec", "derive", "dryrun",
+           "dryrun_cell", "evaluate",
            "from_dict", "from_json", "preset", "presets", "run", "sweep",
            "to_dict", "to_json", "validate", "with_overrides"]
 

@@ -1,13 +1,15 @@
 """Spec consumers of the port (counterpart of ``repro/api/runners.py``):
 ``derive`` the configs a spec implies, and ``run``, ``evaluate`` and
 ``sweep`` it.  Each runs on the card unless given ``device="cpu"``.
+``dryrun_cell``/``dryrun`` cost the spec's arch on the production mesh
+(``launch/dryrun.py``) and need no card.
 """
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 from repro_torch import estimators
 from repro_torch import tasks as tasks_mod
 from repro_torch.api.spec import Experiment, SpecError, to_dict, with_overrides
-from repro_torch.api.validate import n_drop_for
+from repro_torch.api.validate import n_drop_for, resolve_model
 from repro_torch.api.validate import validate as validate_spec
 from repro_torch.core import fo
 from repro_torch.data import synthetic
@@ -145,6 +147,44 @@ def evaluate(spec: Experiment, mode: str = "zeroshot",
                       best_step=hist.get("best_step", -1),
                       val_metric_curve=hist["val_acc"])
     return report
+
+
+def dryrun_cell(spec: Experiment, shape: str, arch: Optional[str] = None,
+                multi_pod: Optional[bool] = None,
+                lowering: str = "optimized",
+                overrides: Optional[Dict] = None) -> Dict:
+    """One roofline cell: the single implementation ``dryrun`` and the
+    CLI grid share.  The record embeds the spec *of the cell* (arch and
+    mesh substituted when the grid varies them)."""
+    from repro_torch.launch import dryrun as dryrun_mod
+
+    arch = spec.model.arch if arch is None else arch
+    mp = (spec.runtime.mesh == "multi_pod") if multi_pod is None \
+        else multi_pod
+    rec = dryrun_mod.run_cell(
+        arch, shape, mp, lowering, overrides=overrides,
+        estimator=spec.estimator.name, q=spec.estimator.q,
+        forward_backend=spec.runtime.forward_backend)
+    rec["spec"] = to_dict(with_overrides(spec, {
+        "model.arch": arch,
+        "runtime.mesh": "multi_pod" if mp else "single"}))
+    return rec
+
+
+def dryrun(spec: Experiment, shape: Optional[str] = None,
+           lowering: str = "optimized",
+           overrides: Optional[Dict] = None) -> List[Dict]:
+    """Cost the spec's arch on the production mesh (fake process group,
+    meta tensors: no card) and return the roofline records, one a shape
+    cell."""
+    validate_spec(spec)
+    from repro_torch.configs.shapes import SHAPES, shapes_for
+
+    mcfg = resolve_model(with_overrides(spec, {"model.variant": "full"}))
+    shapes = [SHAPES[shape]] if shape else shapes_for(mcfg)
+    return [dryrun_cell(spec, sh.name, lowering=lowering,
+                        overrides=overrides)
+            for sh in shapes]
 
 
 def sweep(spec: Experiment, overrides: List[Dict[str, Any]], device=None,

@@ -28,16 +28,12 @@ BACKENDS = ("dense", "scan", "gather", "pallas")
 FO_OPTIMIZERS = ("sgd", "momentum", "adamw")
 PEFTS = (None, "lora", "prefix")
 SCHEDULES = ("constant",)
+MESHES = ("single", "multi_pod")   # only the dry run reads it
 
 
 def _require(cond: bool, path: str, message: str):
     if not cond:
         raise SpecError(path, message)
-
-
-def _ported(cond: bool, path: str, what: str):
-    if not cond:
-        raise SpecError(path, f"{what} is not yet ported to repro_torch")
 
 
 def resolve_model(spec: Experiment):
@@ -121,7 +117,8 @@ def validate(spec: Experiment):
              "runtime.forward_backend",
              f"unknown forward_backend {rt.forward_backend!r}; pick from "
              f"{costs.FORWARD_BACKENDS}")
-    _ported(rt.mesh == "single", "runtime.mesh", f"mesh {rt.mesh!r}")
+    _require(rt.mesh in MESHES, "runtime.mesh",
+             f"unknown mesh {rt.mesh!r}; pick from {MESHES}")
     _require(rt.peft in PEFTS, "runtime.peft",
              f"unknown peft {rt.peft!r}; pick from {PEFTS}")
     _require(rt.lora_rank >= 1, "runtime.lora_rank",

@@ -20,7 +20,9 @@ manifest, which is how they are read back bit for bit.
   on a daemon thread; an error of that write is raised by the next
   ``wait()`` (``save`` and the trainer's end of run call it), so a
   checkpoint is never lost silently;
-* keep-k GC and newest-first ``latest()``.
+* keep-k GC and newest-first ``latest()``;
+* a tree placed on a mesh saves whole leaves (``full_tensor``), so it
+  restores on any mesh: ``remesh`` places the restored tree.
 """
 from __future__ import annotations
 
@@ -34,11 +36,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import zo
+from repro_torch.distributed.ctx import is_dtensor
 
 _BF16 = np.dtype("V2")
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if is_dtensor(t):
+        t = t.full_tensor()          # every rank saves the whole leaf
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16)
@@ -170,3 +175,34 @@ class CheckpointManager:
                 leaf.copy_(t.to(leaf.dtype))
         return (template, manifest["step"], manifest["base_seed"],
                 manifest["extra"])
+
+
+def remesh(params, mesh, shardings):
+    """Place a (restored) tree onto a new mesh — the elastic rescale.
+
+    ``shardings`` maps each leaf path to its DTensor placements on
+    ``mesh`` (``distributed.sharding.placements`` of its spec).  A leaf
+    already placed on another mesh is gathered whole first.  An ``LM``
+    is placed in place and returned; a dict tree comes back as a new
+    dict of DTensors."""
+    from repro_torch.distributed.sharding import distribute
+
+    def place(path, t):
+        t = t.full_tensor() if is_dtensor(t) else t
+        return distribute(t.detach(), mesh, shardings[path])
+
+    if isinstance(params, torch.nn.Module):
+        for prefix, mod in params.named_modules():
+            for k, p in list(mod._parameters.items()):
+                path = f"{prefix}.{k}".lstrip(".").replace(".", "/")
+                mod._parameters[k] = torch.nn.Parameter(
+                    place(path, p.data), requires_grad=False)
+        return params
+    out = {}
+    for path, t in zo.leaf_items(params):
+        node = out
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = place(path, t)
+    return out

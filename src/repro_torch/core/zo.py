@@ -242,3 +242,40 @@ def tree_axpy_(params, spec: ZOSpec, seed: int, scale, masks, idxs=None, *,
                       decay=decay, mask=mask, active_idx=aidx,
                       backend=backend)
     return params
+
+
+@dataclasses.dataclass(frozen=True)
+class ZOConfig:
+    """The reference's legacy step config, field for field but for its
+    Pallas ``interpret`` flag (the port's kernels have no interpret
+    mode: a CPU tensor takes the plain version)."""
+    eps: float = 1e-3
+    lr: float = 1e-6
+    n_drop: int = 0               # 0 => MeZO; >0 => LeZO
+    policy: str = "stratified"    # stratified | uniform
+    backend: str = "dense"        # dense | scan | gather | pallas
+    fused_update: bool = True     # single restore+update pass
+    weight_decay: float = 0.0
+    forward_backend: str = "materialized"
+    paired_probes: bool = True
+
+
+def make_zo_step(loss_fn: Callable, spec: ZOSpec, cfg: ZOConfig,
+                 lr_schedule: Optional[Callable] = None):
+    """``step(params, batch, step_idx, base_seed) -> (params, metrics)``,
+    the reference's legacy two-point step: a thin shim over
+    ``estimators.make_step`` with ``estimators.from_zo(cfg)``, so every
+    result bit is the estimator path's.  Parameters update in place, as
+    on every path of the port; DTensor parameters (a mesh) too."""
+    if cfg.backend == "gather" and cfg.policy != "stratified":
+        raise ValueError("gather backend requires the stratified policy")
+    from repro_torch import estimators   # estimators builds on zo
+
+    estep, _ = estimators.make_step(loss_fn, spec, estimators.from_zo(cfg),
+                                    lr_schedule)
+
+    def step(params, batch, step_idx, base_seed):
+        p, _state, metrics = estep(params, {}, batch, step_idx, base_seed)
+        return p, metrics
+
+    return step

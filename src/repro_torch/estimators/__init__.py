@@ -37,7 +37,7 @@ ESTIMATORS = tuple(REGISTRY)
 __all__ = ["AveragedSPSA", "DirectionSet", "ESTIMATORS", "Estimator",
            "EstimatorConfig", "ImportanceSelect", "OneSidedBatched",
            "REGISTRY", "TwoPointSPSA", "build_estimator", "costs",
-           "direction_seeds", "make_step"]
+           "direction_seeds", "from_zo", "make_step"]
 
 
 def build_estimator(spec: zo.ZOSpec, cfg: EstimatorConfig,
@@ -52,6 +52,17 @@ def build_estimator(spec: zo.ZOSpec, cfg: EstimatorConfig,
             f"unknown forward_backend {cfg.forward_backend!r}; pick from "
             f"{costs.FORWARD_BACKENDS}")
     return REGISTRY[cfg.name](spec, cfg, select_fn=select_fn)
+
+
+def from_zo(zo_cfg, name: str = "two_point", q: int = 1,
+            **kw) -> EstimatorConfig:
+    """Lift a legacy ``zo.ZOConfig`` into an EstimatorConfig."""
+    return EstimatorConfig(
+        name=name, eps=zo_cfg.eps, lr=zo_cfg.lr, q=q, n_drop=zo_cfg.n_drop,
+        policy=zo_cfg.policy, backend=zo_cfg.backend,
+        fused_update=zo_cfg.fused_update, weight_decay=zo_cfg.weight_decay,
+        forward_backend=zo_cfg.forward_backend,
+        paired_probes=zo_cfg.paired_probes, **kw)
 
 
 def make_step(loss_fn: Callable, spec: zo.ZOSpec, cfg: EstimatorConfig,

@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import rng, zo
+from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.estimators import costs
 from repro_torch.obs import trace as obs
 
@@ -72,7 +73,10 @@ class DirectionSet:
 
 
 def host_f32(x) -> np.float32:
-    """A loss (0-dim tensor or float) as a float32 host scalar."""
+    """A loss (0-dim tensor or float) as a float32 host scalar; a DTensor
+    loss (a mesh step) is reduced over its partial placements first."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     return np.float32(x.item() if hasattr(x, "item") else x)
 
 

@@ -12,6 +12,8 @@ from typing import Dict
 
 ESTIMATORS = ("two_point", "one_sided", "averaged", "importance")
 FORWARD_BACKENDS = ("materialized", "virtual", "virtual_ref")
+# the step the dry run lowers: launch/analysis.py projects from it
+BASELINE = "two_point"
 
 
 def step_counts(name: str, q: int = 1, fused_update: bool = True,

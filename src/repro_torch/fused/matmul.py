@@ -27,7 +27,10 @@ consecutive probes reads x and writes its output in place; any other
 group gathers its x rows and scatters its output.
 
 ``row_off``/``col_off``/``ld``/``trans`` define the counter window into
-the stored leaf, as in the reference.
+the stored leaf, as in the reference.  A DTensor ``w`` (a leaf placed on
+a mesh) runs per rank on its block (:func:`_sharded`): the block's
+global offset is added to the window and ``ld`` stays the full leaf's,
+so each shard draws exactly its slice of z.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import ctypes
 
 import torch
 
+from repro_torch.distributed.ctx import is_dtensor, tp_apply
 from repro_torch.fused import ref as fref
 from repro_torch.kernels import _build
 
@@ -160,12 +164,42 @@ def _launch(x, w, seeds, scales, active, *, trans, ld, row_off, col_off,
     return out.reshape(P, *lead, N)
 
 
+def cost(x, w, P: int, n_active: int):
+    """(flops, bytes) of one K3/K4 launch of P probes, x (P·M, K): the
+    products, z made once per active W element and seed (counted as
+    ``zo_axpy.OPS_PER_ELEMENT`` operations each), and x, W and the
+    output each moved once."""
+    from repro_torch.kernels.zo_axpy import OPS_PER_ELEMENT
+
+    K, N = w.shape
+    M = x.numel() // K
+    flops = 2.0 * M * K * N + n_active * K * N * OPS_PER_ELEMENT
+    return flops, float((x.numel() + K * N + M * N) * x.element_size())
+
+
+def _sharded(fn, x, w, *args, trans=False, ld=None, row_off=0, col_off=0):
+    """``fn`` (pmatmul or pmatmul_stack) on this rank's block of a DTensor
+    ``w`` (``distributed/ctx.py::tp_apply``), the block's global offset
+    added to the counter window and ``ld`` the full leaf's."""
+    K, N = w.shape
+    ld = (K if trans else N) if ld is None else ld
+    return tp_apply(lambda xl, wl, off: fn(
+        xl, wl, *args, trans=trans, ld=ld, row_off=row_off + off[0],
+        col_off=col_off + off[1]), x, w)
+
+
 def pmatmul(x, w, seed: int, scale, active=True, *, trans=False, ld=None,
             row_off=0, col_off=0):
     """K4: ``x @ (w + scale*z)``; x (..., K), w (K, N)."""
+    if is_dtensor(w):
+        return _sharded(pmatmul, x, w, seed, scale, active, trans=trans,
+                        ld=ld, row_off=row_off, col_off=col_off)
     if x.device.type != "cuda":
-        return fref.pmatmul(x, w, seed, scale, active, trans=trans, ld=ld,
-                            row_off=row_off, col_off=col_off)
+        with _build.plain_region("pmatmul", *cost(x, w, 1, int(active))):
+            if x.device.type == "meta":  # shapes only: nothing to compute
+                return x.new_empty((*x.shape[:-1], w.shape[1]))
+            return fref.pmatmul(x, w, seed, scale, active, trans=trans,
+                                ld=ld, row_off=row_off, col_off=col_off)
     out = _launch(x[None], w, (seed,), (scale,), (bool(active),),
                   trans=trans, ld=ld, row_off=row_off, col_off=col_off)
     single_counter.launches += 1
@@ -175,9 +209,18 @@ def pmatmul(x, w, seed: int, scale, active=True, *, trans=False, ld=None,
 def pmatmul_stack(x, w, seeds, scales, active, *, trans=False, ld=None,
                   row_off=0, col_off=0):
     """K3: P stacked probes; x (P, ..., K), seeds/scales/active length P."""
+    if is_dtensor(w):
+        return _sharded(pmatmul_stack, x, w, seeds, scales, active,
+                        trans=trans, ld=ld, row_off=row_off, col_off=col_off)
     if x.device.type != "cuda":
-        return fref.pmatmul_stack(x, w, seeds, scales, active, trans=trans,
-                                  ld=ld, row_off=row_off, col_off=col_off)
+        n_on = len({s for s, a in zip(seeds, active) if a})
+        with _build.plain_region("pmatmul_stack",
+                                 *cost(x, w, len(seeds), n_on)):
+            if x.device.type == "meta":  # shapes only: nothing to compute
+                return x.new_empty((*x.shape[:-1], w.shape[1]))
+            return fref.pmatmul_stack(x, w, seeds, scales, active,
+                                      trans=trans, ld=ld, row_off=row_off,
+                                      col_off=col_off)
     seeds, scales = tuple(seeds), tuple(scales)
     active = tuple(bool(a) for a in active)
     kw = dict(trans=trans, ld=ld, row_off=row_off, col_off=col_off)

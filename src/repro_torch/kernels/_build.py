@@ -22,6 +22,7 @@ library links against ``libcuda``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +39,21 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-ldl")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+# Set by ``launch/analysis.py`` while it counts a program's cost: a
+# callable (kernel, flops, bytes) -> context manager.
+COST_REGION = None
+
+
+def plain_region(kernel: str, flops: float, nbytes: float):
+    """Context around a wrapper's plain version (a tensor off the card).
+    Under the dry run's cost counter it stands for one launch of
+    ``kernel`` with the kernel's own flops and bytes, as the card would
+    run it; otherwise it does nothing."""
+    if COST_REGION is None:
+        return contextlib.nullcontext()
+    return COST_REGION(kernel, flops, nbytes)
 
 
 class Counter:

@@ -28,8 +28,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.kernels import _build
 
 F32 = torch.float32
@@ -181,11 +183,70 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def visible_keys(Sq: int, Sk: int, causal: bool, q_offset: int,
+                 k_offset: int) -> int:
+    """Query-key pairs attention scores: all Sq*Sk, or under the causal
+    mask those with key position <= query position."""
+    if not causal:
+        return Sq * Sk
+    return int(np.clip(np.arange(Sq) + (q_offset - k_offset + 1), 0,
+                       Sk).sum())
+
+
+def cost(q, k, *, causal, q_offset, k_offset):
+    """(flops, bytes) of one K2 launch: QK^T and PV over the visible
+    pairs, and q, k, v and out each moved once."""
+    B, Sq, KV, G, dh = q.shape
+    pairs = visible_keys(Sq, k.shape[1], causal, q_offset, k_offset)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return 4.0 * B * KV * G * dh * pairs, float(nbytes)
+
+
+def _sharded(q, k, v, **kw):
+    """K2 on DTensor q/k/v: each rank attends its block.  Batch, KV heads
+    (q/k/v alike), q's head groups or q's sequence (query stripes, k/v
+    whole) may be sharded; any other placement is first redistributed to
+    replication.  A stripe's ``q_offset`` is the global position of its
+    first row.  Under the dry run's counter a launch costs what the
+    last stripe's does (the slowest rank's)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import local_window
+
+    mesh = q.device_mesh
+    tq, tk = [], []
+    for p in q.placements:
+        if p in (Shard(0), Shard(2)):
+            tq.append(p), tk.append(p)
+        elif p in (Shard(1), Shard(3)):
+            tq.append(p), tk.append(Replicate())
+        else:
+            tq.append(Replicate()), tk.append(Replicate())
+    q, k, v = (t.redistribute(mesh, pl) for t, pl in
+               ((q, tq), (k, tk), (v, tk)))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    _, off = local_window(q.shape, mesh, tq)
+    # a cost counter sees one rank; a causal step waits for the rank
+    # with the last query stripe, which scores the most keys
+    last = kw["q_offset"] + q.shape[1] - ql.shape[1]
+    kw["q_offset"] += off[1]
+    with _build.plain_region("flash_attention", *cost(
+            ql, kl, causal=kw["causal"], q_offset=last,
+            k_offset=kw["k_offset"])):
+        out = flash_attention(ql, kl, vl, **kw)
+    return DTensor.from_local(out, mesh, tq, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
 def flash_attention(q, k, v, *, causal=True, q_offset=0, k_offset=0,
                     q_chunk=512, k_chunk=512):
     """K2 on CUDA tensors (``q_chunk``/``k_chunk`` are the plain path's
     chunking; the kernel uses its own tiles), the plain version on CPU;
-    through :class:`FlashAttention` when a gradient is wanted."""
+    through :class:`FlashAttention` when a gradient is wanted; per rank
+    on DTensors (:func:`_sharded`)."""
+    if is_dtensor(q):
+        return _sharded(q, k, v, causal=causal, q_offset=q_offset,
+                        k_offset=k_offset, q_chunk=q_chunk, k_chunk=k_chunk)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, q_offset, k_offset,
@@ -193,6 +254,10 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, k_offset=0,
     if q.device.type == "cuda":
         return _launch(q, k, v, causal=causal, q_offset=q_offset,
                        k_offset=k_offset)
-    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                 k_offset=k_offset, q_chunk=q_chunk,
-                                 k_chunk=k_chunk)
+    with _build.plain_region("flash_attention", *cost(
+            q, k, causal=causal, q_offset=q_offset, k_offset=k_offset)):
+        if q.device.type == "meta":      # shapes only: nothing to compute
+            return torch.empty_like(q)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, k_offset=k_offset,
+                                     q_chunk=q_chunk, k_chunk=k_chunk)

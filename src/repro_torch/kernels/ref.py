@@ -7,7 +7,9 @@ oracle (z for every row, then a select).  ``zo_axpy_2d_`` is the plain
 version of kernel K1 (``kernels/zo_axpy.py``): in place over an (L, n)
 view, row by row, skipping masked-off rows, in chunks so that a
 full-width row never needs int64 counters for all of its elements at
-once.
+once.  ``zo_axpy_window_`` is the axpy over one shard of a leaf placed
+on a mesh: every element draws the z of its *global* index, so the
+shards of a leaf together make exactly the unsharded leaf's z.
 """
 from __future__ import annotations
 
@@ -62,3 +64,37 @@ def zo_axpy_2d_(theta, mask, seed: int, scale, decay):
             seg = row[c0:c1]
             seg.copy_((d * seg.to(torch.float32) + s * z).to(theta.dtype))
     return theta
+
+
+def window_counters(offset, lshape, gshape, device=None) -> torch.Tensor:
+    """Flat indices within a tensor of shape ``gshape`` of the block of
+    shape ``lshape`` at ``offset`` (int64, shape ``lshape``)."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(gshape))):
+        ar = offset[d] + torch.arange(lshape[d], device=device)
+        idx = idx + (ar * stride).reshape((-1,) + (1,) * (len(gshape) - 1 - d))
+        stride *= gshape[d]
+    return idx
+
+
+def zo_axpy_window_(local, rows, seed: int, scale, decay, offset, gshape):
+    """In place over ``local``, the block of a leaf of global shape
+    ``gshape`` at ``offset``: ``decay*x + scale*z`` with z of the global
+    elements.  ``rows`` (local indices on axis 0) are the layers to
+    update, layer ``offset[0] + r`` keyed ``fold(seed, offset[0] + r)``
+    with counters within the layer; ``rows=None`` is an unstacked leaf,
+    one pseudo-layer 0 with counters over the whole leaf."""
+    s, d = _f32(scale).to(local.device), _f32(decay).to(local.device)
+    if rows is None:
+        z = rng.counter_normal(rng.fold_py(seed, 0), window_counters(
+            offset, local.shape, gshape, local.device))
+        local.copy_((d * local.to(torch.float32) + s * z).to(local.dtype))
+        return local
+    idx = window_counters(offset[1:], local.shape[1:], gshape[1:],
+                          local.device)
+    for r in rows:
+        z = rng.counter_normal(rng.fold_py(seed, offset[0] + r), idx)
+        row = local[r]
+        row.copy_((d * row.to(torch.float32) + s * z).to(local.dtype))
+    return local

@@ -30,6 +30,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 counter = _build.Counter()
 
+# Operations one element of K1 does, counted from the z contract in
+# csrc/rng.cuh (two counter inputs, two mix32, the log and sqrt
+# polynomials, the cosine, r*c) plus the axpy, unpack and pack: the
+# dry run's flop count for a launch.
+OPS_PER_ELEMENT = 48.5
+
 
 def _launch(theta, mask, seed, scale, decay):
     if theta.dtype not in _DTYPES:
@@ -61,7 +67,12 @@ def zo_axpy_2d_(theta, mask, seed: int, scale, decay=1.0):
     leaf seed (uint32 int); ``scale``/``decay`` float32 scalars."""
     if theta.device.type == "cuda":
         return _launch(theta, mask, seed, scale, decay)
-    return kref.zo_axpy_2d_(theta, mask, seed, scale, decay)
+    n = int(mask.sum()) * theta.shape[1]
+    with _build.plain_region("zo_axpy_2d", n * OPS_PER_ELEMENT,
+                             2.0 * n * theta.element_size()):
+        if theta.device.type == "meta":  # shapes only: nothing to compute
+            return theta
+        return kref.zo_axpy_2d_(theta, mask, seed, scale, decay)
 
 
 RNG_INPUTS = 1 << 24

@@ -3,7 +3,9 @@
 
     python -m repro_torch.launch train    --preset lezo-opt13b --set optimizer.lr=1e-4
     python -m repro_torch.launch evaluate --task sst2 --mode train
-    python -m repro_torch.launch specs    --out artifacts/specs
+    python -m repro_torch.launch dryrun   --arch opt-13b --shape train_4k
+    python -m repro_torch.launch hillclimb --arch opt-13b --shape train_4k --cfg attn_k_chunk=1024
+    python -m repro_torch.launch specs    --out artifacts/specs [--markdown docs]
     python -m repro_torch.launch report   [RUN] [--runs-root DIR]
     python -m repro_torch.launch replay   [RUN] [--step K] [--device cpu]
     python -m repro_torch.launch swarm    --preset swarm-smoke [--device cpu]
@@ -29,14 +31,20 @@ the spec's seed for ``--batch`` synthetic prompts: through the paged
 engine (``repro_torch.serving``, ``spec.serving``) or, with ``--engine
 lockstep``, the lockstep loop (``launch/serve.py``).
 
+``dryrun`` costs grid cells (arch x shape x mesh) on a fake process
+group over meta tensors and prints each cell's H100 roofline terms and
+per-device memory; ``hillclimb`` costs one cell under model-config
+overrides.  Neither needs a card.  ``specs --markdown DIR`` regenerates
+the generated docs under DIR (``launch/docgen.py``).
+
 One flag the reference lacks: ``--device`` (default ``cuda``) on
 ``train``, ``evaluate``, ``replay``, ``serve`` and ``swarm`` (where the
 workers take it too: local workers on the card share that one card);
 the CPU runs only when asked with ``--device cpu``, and without a card
-the default fails rather than falling back.  ``specs`` has no
-``--markdown``.  The module entry points
-``repro_torch.launch.train`` and ``.evaluate`` are thin shims that
-forward here.
+the default fails rather than falling back.  The dry-run commands have
+no ``--device`` and no ``--save-hlo`` (there is no HLO).  The module
+entry points ``repro_torch.launch.train``, ``.evaluate``, ``.dryrun``
+and ``.hillclimb`` are thin shims that forward here.
 """
 from __future__ import annotations
 
@@ -113,7 +121,6 @@ def add_spec_flags(ap: argparse.ArgumentParser):
     ap.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
                     help="spec override, e.g. --set optimizer.lr=1e-4 "
                          "(highest precedence, repeatable)")
-    _add_device(ap)
 
 
 def _add_device(ap: argparse.ArgumentParser):
@@ -334,8 +341,107 @@ def _cmd_specs(ns):
         with open(path, "w") as f:
             f.write(api.to_json(presets_mod.get(name)))
         written[name] = path
+    if ns.markdown:
+        from repro_torch.launch import docgen
+        for path in docgen.write_docs(ns.markdown):
+            written[os.path.basename(path)] = path
     print(json.dumps(written, indent=1))
     return written
+
+
+def _cmd_dryrun(ns):
+    from repro_torch import configs
+    from repro_torch.configs.shapes import SHAPES, shapes_for
+
+    spec = build_spec(ns)
+    api.validate(spec)
+    archs = ([a for a in configs.list_archs() if a != "opt-13b"]
+             if ns.all else [spec.model.arch])
+    cells = []
+    for arch in archs:
+        cfg = configs.get(arch)
+        shapes = [SHAPES[ns.shape]] if ns.shape else shapes_for(cfg)
+        for sh in shapes:
+            meshes = ([False, True] if (ns.both_meshes or ns.all)
+                      else [ns.multi_pod or spec.runtime.mesh == "multi_pod"])
+            for mp in meshes:
+                cells.append((arch, sh.name, mp))
+
+    os.makedirs(ns.out, exist_ok=True)
+    results, failures = [], []
+    for arch, shape_name, mp in cells:
+        try:
+            rec = api.dryrun_cell(spec, shape_name, arch=arch, multi_pod=mp,
+                                  lowering=ns.lowering)
+            results.append(rec)
+            tag = f"{arch}_{shape_name}_{'mp' if mp else 'sp'}_{ns.lowering}"
+            _write_json(os.path.join(ns.out, tag + ".json"), rec)
+        except Exception as e:  # noqa: BLE001 — report every cell
+            failures.append((arch, shape_name, mp, repr(e)[:300]))
+            print(f"FAIL [{arch} x {shape_name} x "
+                  f"{'mp' if mp else 'sp'}]: {e!r}"[:400])
+    print(f"\n{len(results)} cells passed, {len(failures)} failed")
+    for f in failures:
+        print("  FAIL:", f)
+    return {"cells": results, "failures": failures}
+
+
+def _cmd_hillclimb(ns):
+    from repro_torch.launch import analysis
+    from repro_torch.launch import dryrun as dryrun_mod
+
+    spec = build_spec(ns)
+    api.validate(spec)
+    overrides = {}
+    for kv in ns.cfg:
+        k, v = kv.split("=", 1)
+        try:
+            v = int(v)
+        except ValueError:
+            try:
+                v = float(v)
+            except ValueError:
+                pass
+        overrides[k] = v
+
+    multi_pod = ns.multi_pod or spec.runtime.mesh == "multi_pod"
+    rec = dryrun_mod.run_cell(spec.model.arch, ns.shape, multi_pod,
+                              ns.lowering, verbose=False,
+                              overrides=overrides)
+    terms, mem = rec["roofline"], rec["memory"]
+    dom = max(("compute_s", "memory_s", "collective_s"),
+              key=lambda k: terms[k])
+    print(f"\n=== {spec.model.arch} x {ns.shape} x "
+          f"{'mp' if multi_pod else 'sp'} x {ns.lowering} "
+          f"{overrides or ''} (H100 SXM, "
+          f"{dryrun_mod.H100['power_limit_w']} W) ===")
+    print(f"compute={terms['compute_s']*1e3:10.2f} ms")
+    print(f"memory ={terms['memory_s']*1e3:10.2f} ms")
+    print(f"coll   ={terms['collective_s']*1e3:10.2f} ms   dominant: {dom}")
+    print(f"temp   ={mem['temp_bytes']/2**30:10.2f} GiB  "
+          f"args={mem['argument_bytes']/2**30:.2f} GiB")
+    proj = None
+    est, q = spec.estimator.name, spec.estimator.q
+    fwd_backend = spec.runtime.forward_backend
+    if est != "two_point" or q != 1 or fwd_backend != "materialized":
+        proj = analysis.estimator_step_cost(
+            terms, est, q=q, forward_backend=fwd_backend,
+            param_bytes=mem["argument_bytes"])
+        print(f"\nprojected for estimator={est} q={q} "
+              f"({proj['forwards']} forwards, {proj['axpy_sweeps']} sweeps):")
+        print(f"compute={proj['compute_s']*1e3:10.2f} ms  "
+              f"memory={proj['memory_s']*1e3:10.2f} ms  "
+              f"coll={proj['collective_s']*1e3:10.2f} ms")
+    detail = rec["detail"]
+    print("\ntop collectives (GiB wire/device/step):")
+    for k, v in list(detail.items())[:ns.top]:
+        print(f"  {v/2**30:9.3f}  {k[:110]}")
+    out = {"spec": api.to_dict(spec), "overrides": overrides, "terms": terms,
+           "memory": mem, "estimator_projection": proj,
+           "detail": dict(list(detail.items())[:30])}
+    if ns.tag:
+        _write_json(f"artifacts/hillclimb/{ns.tag}.json", out)
+    return out
 
 
 # ------------------------------------------------------------------ parser
@@ -357,6 +463,30 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
     elif cmd == "specs":
         ap.add_argument("--out", default="artifacts/specs",
                         help="dump every preset spec JSON here")
+        ap.add_argument("--markdown", default=None, metavar="DIR",
+                        help="also regenerate the generated docs "
+                             "(cli.md + the serving and telemetry spec "
+                             "tables) under DIR")
+    elif cmd == "dryrun":
+        ap.add_argument("--shape", default=None)
+        ap.add_argument("--lowering", default="optimized",
+                        choices=["optimized", "faithful", "mezo"])
+        ap.add_argument("--multi-pod", action="store_true")
+        ap.add_argument("--both-meshes", action="store_true")
+        ap.add_argument("--all", action="store_true",
+                        help="every (arch x shape) cell")
+        ap.add_argument("--out", default="artifacts/dryrun")
+    elif cmd == "hillclimb":
+        ap.add_argument("--shape", required=True)
+        ap.add_argument("--lowering", default="optimized",
+                        choices=["optimized", "faithful", "mezo"])
+        ap.add_argument("--multi-pod", action="store_true")
+        ap.add_argument("--cfg", action="append", default=[],
+                        metavar="KEY=VAL",
+                        help="model-config override (int/float/str)")
+        ap.add_argument("--top", type=int, default=10)
+        ap.add_argument("--tag", default=None,
+                        help="save json under this tag")
     elif cmd in _NO_SPEC_CMDS:
         ap.add_argument("run", nargs="?", default=None,
                         help="run id or run-dir path (default: the "
@@ -398,9 +528,12 @@ def _add_extras(cmd: str, ap: argparse.ArgumentParser):
 
 
 COMMANDS = {"train": _cmd_train, "evaluate": _cmd_evaluate,
+            "dryrun": _cmd_dryrun, "hillclimb": _cmd_hillclimb,
             "specs": _cmd_specs, "report": _cmd_report,
             "replay": _cmd_replay, "swarm": _cmd_swarm,
             "serve": _cmd_serve}
+# the commands that run without a card, and so take no --device
+_CARDLESS_CMDS = {"dryrun", "hillclimb"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -411,6 +544,8 @@ def build_parser() -> argparse.ArgumentParser:
         p = sub.add_parser(cmd)
         if cmd not in _NO_SPEC_CMDS:
             add_spec_flags(p)
+            if cmd not in _CARDLESS_CMDS:
+                _add_device(p)
         _add_extras(cmd, p)
     return ap
 

@@ -17,11 +17,16 @@ cache (R, B, Smax, KV, dh) and the paged arena (R, n_pages, page_size,
 KV, dh) are the reference's layouts, one layer's slice at a time.
 Decode and paged attention are plain PyTorch, as the reference's are
 ``einsum``s outside any Pallas kernel; so are rope and the norms.
+
+Under a registered mesh (``distributed/ctx.py``) train and prefill
+attention pin q/k/v where the reference does: KV heads on ``model`` when
+they divide it, else query stripes.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import flash_attn as kflash
 
 F32 = torch.float32
@@ -165,7 +170,7 @@ def ffn_params(cfg, gen, L, device, d_ff=None):
 
 
 def _mm(pc):
-    return (lambda a, w, name: a @ w) if pc is None else pc.matmul
+    return (lambda a, w, name: ctx.matmul(a, w)) if pc is None else pc.matmul
 
 
 def _attend(q, k, v, valid):
@@ -251,9 +256,20 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
     mm = _mm(pc)
     h = (apply_norm(cfg, p["norm"], x) if pc is None
          else pc.apply_norm(cfg, p["norm"], x, "norm"))
-    q = mm(h, p["wq"], "wq").reshape(B, S, H, dh)
-    k = mm(h, p["wk"], "wk").reshape(B, S, KV, dh)
-    v = mm(h, p["wv"], "wv").reshape(B, S, KV, dh)
+    q, k, v = (mm(h, p[n], n) for n in ("wq", "wk", "wv"))
+    nm = ctx.model_size()
+    if ctx.get_mesh() is not None and KV % nm:
+        # heads do not divide the model axis, so the column-parallel
+        # outputs cannot split into heads where they lie: train/prefill
+        # attend query stripes (sequence parallel, as the reference: one
+        # k/v gather a layer, no score collectives), decode gathers all
+        seq = mode not in ("decode", "paged") and S % nm == 0
+        q = ctx.constrain(q, "batch", "model" if seq else None, None)
+        k = ctx.constrain(k, "batch", None, None)
+        v = ctx.constrain(v, "batch", None, None)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, KV, dh)
+    v = v.reshape(B, S, KV, dh)
     if cfg.qk_norm:
         if pc is None:
             q = rms_norm(q, p["q_norm"]["scale"])
@@ -269,6 +285,12 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q = q.reshape(B, S, KV, H // KV, dh)
+    if (mode not in ("decode", "paged") and ctx.get_mesh() is not None
+            and KV % nm == 0):
+        # KV heads on model when they divide: attention is head-local
+        k = ctx.constrain(k, "batch", None, "model", None)
+        v = ctx.constrain(v, "batch", None, "model", None)
+        q = ctx.constrain(q, "batch", None, "model", None, None)
     if mode == "paged":
         Pn, psz = cache["k"].shape[0], cache["k"].shape[1]
         page = torch.gather(pages, 1, torch.div(positions, psz,

@@ -61,6 +61,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core import zo
+from repro_torch.distributed import ctx
+from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.fused import ref as fused_ref
 from repro_torch.models import frontends, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -303,14 +305,20 @@ def count_active_params(cfg: ModelConfig, params) -> int:
 # --------------------------------------------------------------- forward
 def _recurrent(cfg, b, p, x, mode="train", cache=None, pos=0, pages=None):
     """A recurrent mixer's output; in prefill and decode its new state
-    is copied into ``cache`` (this layer's views) in place."""
+    is copied into ``cache`` (this layer's views) in place.  On a mesh
+    the scan runs per rank over its batch rows with the block's weights
+    gathered whole (``distributed/ctx.py::rowwise``)."""
     if mode == "paged":
         raise NotImplementedError(
             f"paged serving covers attn mixers only; got {b.kind!r} (use "
             "the lockstep serve path)")
     fwd = {"mamba": ssm.mamba_fwd, "mlstm": ssm.mlstm_fwd,
            "slstm": ssm.slstm_fwd}[b.kind]
-    out, new = fwd(cfg, p, x, mode=mode, cache=cache, pos=pos)
+    if is_dtensor(x):        # on a mesh: per rank, on its batch rows
+        out, new = ctx.rowwise(lambda xl, pl, cl: fwd(
+            cfg, pl, xl, mode=mode, cache=cl, pos=pos), x, p, cache)
+    else:
+        out, new = fwd(cfg, p, x, mode=mode, cache=cache, pos=pos)
     if new is not None:
         for name, t in new.items():
             cache[name].copy_(t)
@@ -480,14 +488,69 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
         y = labels[:, c0:c0 + chunk]
         m = loss_mask[:, c0:c0 + chunk].to(F32)
         if perturb is None:
-            lg = (h @ W).to(F32)                          # (B, chunk, V)
+            lg = ctx.matmul(h, W).to(F32)                 # (B, chunk, V)
         else:
             lg = head.matmul(h, W, **head_kw).to(F32)
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, y[..., None])[..., 0]
+        if vocab_sharded(lg):
+            lse, gold = _vocab_parallel_terms(lg, y)
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, y[..., None])[..., 0]
         tot = tot + torch.sum((lse - gold) * m)
         cnt = cnt + torch.sum(m)
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def vocab_sharded(lg) -> bool:
+    """True for DTensor logits whose vocab (last) dim is sharded."""
+    from torch.distributed.tensor import Shard
+    return is_dtensor(lg) and Shard(lg.ndim - 1) in lg.placements
+
+
+def _vocab_parallel_terms(lg, y):
+    """(logsumexp, gold logit) over the last dim of vocab-sharded DTensor
+    logits ``lg`` (B, C, V), the Megatron way: each rank reduces its
+    vocab slice, and the max, the sum of exponentials and the gold
+    logit (non-zero on the rank that holds the label) are all-reduced
+    over the mesh dims that shard the vocab.  Other placements of ``lg``
+    (the batch) carry over; ``y`` (B, C) follows ``lg``'s batch
+    placement."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (contiguous_stride,
+                                                  local_window)
+
+    mesh, last = lg.device_mesh, lg.ndim - 1
+    vdims = [i for i, p in enumerate(lg.placements) if p == Shard(last)]
+    out_pl = [Replicate() if i in vdims else p
+              for i, p in enumerate(lg.placements)]
+    if is_dtensor(y):
+        y = y.redistribute(mesh, out_pl).to_local()
+    else:
+        y = DTensor.from_local(y, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False).redistribute(
+            mesh, out_pl).to_local()
+    lshape, off = local_window(lg.shape, mesh, lg.placements)
+    loc = lg.to_local()
+    groups = [mesh.get_group(i) for i in vdims]
+    mx = loc.amax(-1)
+    for g in groups:
+        mx = fc.wait_tensor(fc.all_reduce(mx, "max", g))
+    se = torch.exp(loc - mx[..., None]).sum(-1)
+    v0 = off[last]
+    mine = (y >= v0) & (y < v0 + lshape[last])
+    gold = torch.where(mine, torch.gather(
+        loc, -1, torch.clamp(y - v0, 0, lshape[last] - 1)[..., None]
+    )[..., 0], torch.zeros((), dtype=loc.dtype, device=loc.device))
+    for g in groups:
+        se = fc.wait_tensor(fc.all_reduce(se, "sum", g))
+        gold = fc.wait_tensor(fc.all_reduce(gold, "sum", g))
+    shape = tuple(lg.shape[:-1])
+    wrap = lambda t: DTensor.from_local(t, mesh, out_pl, run_check=False,
+                                        shape=shape,
+                                        stride=contiguous_stride(shape))
+    return wrap(mx + torch.log(se)), wrap(gold)
 
 
 def lm_loss(cfg: ModelConfig, params: LM, batch, aux_coef=0.0,

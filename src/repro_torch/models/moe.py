@@ -19,13 +19,17 @@ Top-k comes from a stable descending sort: ``lax.top_k`` breaks ties
 toward the lower expert index, which ``torch.topk`` does not promise.
 
 Every op is plain PyTorch: the reference computes routing, dispatch and
-the expert products outside any Pallas kernel.  Its ``ctx.constrain``
-sharding hints fall away on one device.
+the expert products outside any Pallas kernel.  On a mesh the block
+runs per rank over its batch rows (the reference's ``ctx.constrain``
+hints keep the dispatch row-local on the batch axes; the port makes that
+explicit), with the expert weights gathered whole.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import ctx
+from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.models import layers
 
 F32 = torch.float32
@@ -100,7 +104,41 @@ def _rows(t, idx):
 
 
 def moe_fwd(cfg, p, x):
-    """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar).
+    """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar); on
+    a mesh per rank over its batch rows (:func:`_moe_rowwise`)."""
+    if is_dtensor(x):
+        return _moe_rowwise(cfg, p, x)
+    return _moe_local(cfg, p, x)
+
+
+def _moe_rowwise(cfg, p, x):
+    """The block per rank, dispatch row-local as the reference keeps it,
+    the expert weights gathered whole; ``aux``'s batch means are taken
+    over the global batch (the per-rank terms averaged over the batch
+    axes, which hold equal row counts)."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    aux_parts = {}
+
+    def fn(xl, pl, _):
+        y, aux = _moe_local(cfg, pl, xl, means=aux_parts)
+        return y, None
+    y, _ = ctx.rowwise(fn, x, p)
+    me, ce = aux_parts["me"], aux_parts["ce"]
+    for i, pl in enumerate(y.placements):
+        if pl == Shard(0):
+            me = fc.wait_tensor(fc.all_reduce(me, "avg", mesh.get_group(i)))
+            ce = fc.wait_tensor(fc.all_reduce(ce, "avg", mesh.get_group(i)))
+    aux = cfg.n_experts * torch.sum(me * ce)
+    return y, DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+
+
+def _moe_local(cfg, p, x, means=None):
+    """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar);
+    ``means`` (a dict) receives aux's two batch means, ``me`` and ``ce``.
 
     ``aux`` is the Switch-style load-balance term E · Σ_e mean-prob_e ·
     mean-assignment-share_e.  The expert products run in the model
@@ -123,6 +161,8 @@ def moe_fwd(cfg, p, x):
                     torch.ones((B, S * k), dtype=F32, device=x.device))
     ce = ce / (S * k)
     aux = E * torch.sum(me * torch.mean(ce, dim=0))
+    if means is not None:
+        means.update(me=me, ce=torch.mean(ce, dim=0))
 
     # ---- per-row sort-based dispatch -----------------------------------
     order, e_s, keep, slot = dispatch(top_e, E, C)

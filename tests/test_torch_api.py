@@ -3,6 +3,7 @@ for every preset), validation of what the slice does not run, the
 device default, the import boundary, and the ``tiny-smoke`` trajectory
 against ``repro.api.run`` (every logged loss within rtol 1e-3)."""
 import ast
+import dataclasses
 import os
 
 import jax
@@ -38,14 +39,20 @@ def test_preset_json_identical(name):
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_unported_fields_raise(override, path):
-    """``path`` is the field the case sets.  A mesh is not yet ported.
-    The recurrent archs are: they validate on the preset's materialized
+    """``path`` is the field the case sets.  ``runtime.mesh =
+    multi_pod`` now validates to the reference's config (only the dry
+    run reads it) and an unknown mesh raises at the field.  The
+    recurrent archs are ported: they validate on the preset's materialized
     forward backend and, as in the reference, raise at
     ``runtime.forward_backend`` under the virtual one."""
     spec = tapi.with_overrides(tapi.preset("lezo-opt13b"), override)
     if path == "runtime.mesh":
-        with pytest.raises(tapi.SpecError, match="not yet ported") as e:
-            tapi.validate(spec)
+        want = japi.validate(japi.with_overrides(japi.preset("lezo-opt13b"),
+                                                 override))
+        assert dataclasses.asdict(tapi.validate(spec)) == \
+            dataclasses.asdict(want)
+        with pytest.raises(tapi.SpecError, match="unknown mesh") as e:
+            tapi.validate(tapi.with_overrides(spec, {"runtime.mesh": "ring"}))
         assert e.value.path == path
         return
     assert spec.runtime.forward_backend == "materialized"

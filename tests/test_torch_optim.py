@@ -468,14 +468,19 @@ def test_validator_accepts_presets(name):
     ({"model.arch": "jamba-v0.1-52b"}, "model.arch"),
 ])
 def test_validator_still_rejects_unported(override, path):
-    """``path`` is the field the case sets.  A mesh is still refused as
-    not yet ported; the recurrent archs are ported, and the FO preset on
+    """``path`` is the field the case sets.  ``runtime.mesh =
+    multi_pod`` now validates to the reference's config and an unknown
+    mesh is refused at the field; the recurrent archs are ported, and the FO preset on
     them validates to the reference's config, as the reference's
     validator accepts it."""
     spec = tapi.with_overrides(tapi.preset("fo-opt13b"), override)
     if path == "runtime.mesh":
-        with pytest.raises(tapi.SpecError, match="not yet ported") as e:
-            tapi.validate(spec)
+        want = japi.validate(japi.with_overrides(japi.preset("fo-opt13b"),
+                                                 override))
+        assert dataclasses.asdict(tapi.validate(spec)) == \
+            dataclasses.asdict(want)
+        with pytest.raises(tapi.SpecError, match="unknown mesh") as e:
+            tapi.validate(tapi.with_overrides(spec, {"runtime.mesh": "ring"}))
         assert e.value.path == path
         return
     want = japi.validate(japi.with_overrides(japi.preset("fo-opt13b"),
