@@ -179,15 +179,40 @@ when it fails:
              factor 1.25; each served through the lockstep ``generate``
              (4, 1024) + 32 twice (equal tokens; the engine must refuse
              them) with a decode step timed and profiled.
-17. fo     — K2's backward against autograd through its plain version at
+17. modes  — the reference's other optimizer modes on the zoo's config
+             families, once no earlier weights are held.  First each
+             kernel against its plain version at the shapes only these
+             runs give it (the ``modes_shapes`` rows): K3 on Qwen3-14B's
+             seven layer leaves and K4 on its untied head (``trans=False``)
+             at the swarm's batch shard, x (2, 504, K); K2's forward inside
+             FO's autograd ``Function`` at MLA's dh = 192 and granite's
+             GQA, its plain float32 backward timed beside; K2 at prefix
+             tuning's shape on Qwen3-14B (G = 5); K1 on Qwen3-14B's LoRA
+             ``wv/B`` leaf.  Then Qwen3-14B at full width and depth,
+             3 steps each, twice from the seed (losses, projected
+             gradients and trainable digests bit-equal; launches as
+             reckoned): LoRA and prefix (materialized; K1 a tree leaf a
+             sweep, K2 a layer a forward), ZO momentum (K1 a leaf for
+             each of its 3 + min(8, t + 1) sweeps) and the swarm's sharded
+             step in one process (two loss shards: K2 L, K3 7L and K4 2 a
+             shard, K1 at the commit).  FO (float32 masters, K2 in the
+             forward, its backward plain) on granite-moe-1b-a400m (SGD
+             and AdamW) and xlstm-350m (SGD) at full width and depth, and
+             SGD on deepseek-v2-lite-16b at the deepest depth whose 8 B a
+             parameter fit 75 % of the card: twice each, bit-equal
+             (the MoE dispatch's gradient adds in a fixed order).
+             The K2 rows also hold the kernel's row statistics and the
+             gradients through it.  jamba's FO is reckoned and
+             stays on the CPU: one period holds more than the card.
+18. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-18. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+19. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
-19. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+20. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
              this process holds no 13B weights.  First K1-K4 against
              their plain versions at the shapes one worker's loss shard
              gives them (the ``swarm_shapes`` rows of the kernels line).
@@ -213,7 +238,7 @@ when it fails:
              the crash.  Wall times, steps a second, steady bytes a step
              beside 4·|θ| for an FO gradient exchange, each worker's
              peak memory.
-20. mesh   — the mesh layer at OPT-13B full width and depth (B 16,
+21. mesh   — the mesh layer at OPT-13B full width and depth (B 16,
              S 63), once no earlier weights are held.  ``make_zo_step``
              (the dry run's ``optimized`` config with the sweeps on K1,
              ``backend=pallas``; n_drop 30) 4 steps plain, then the same
@@ -224,7 +249,14 @@ when it fails:
              leaf a sweep, K2 a layer a forward).  2 + 10 steady mesh
              steps: median wall against the plain step's (DTensor's host
              cost), device time and idle share (``torch.profiler``), peak
-             memory; beside them the dry run of the same step on a fake
+             memory.  Then the paged engine with the ``serve`` phase's
+             settings and 16 requests, plain and then as
+             ``Engine(mesh=...)`` over the same 1 x 1 mesh (parameters and
+             the arena's pages placed on it): greedy tokens bit-equal, no
+             K1-K4 launch (the engine's attention is plain, as the
+             reference's), TTFT, tok/s and a steady decode step's wall,
+             device time, idle share and kernels for each.  Beside them
+             the dry run of the same train step on a fake
              1 x 1 mesh: device time must be at or above max(compute_s,
              memory_s), the predicted peak (arguments + temporaries)
              within +-10 % of the measured one, ``useful_flop_ratio`` at
@@ -234,7 +266,8 @@ when it fails:
              bit-equal to the unsharded launch's columns, row partial sums
              within n + 1 bf16 steps of it, each shard within one step of
              the plain ``pmatmul`` at its window, a shard's time against
-             the unsharded time / n (the ``mesh_shapes`` rows).  Last, the
+             the unsharded time / n, its bound and ``torch.matmul`` at
+             the shard's shape (the ``mesh_shapes`` rows).  Last, the
              grid entry point ``python -m repro_torch.launch dryrun --arch
              opt-13b`` at ``train_4k`` and ``decode_32k`` on the fake
              16 x 16 mesh: each cell's terms, dominant term and per-device
@@ -1677,7 +1710,8 @@ def profile_one(tag, fn, what):
 def decode_profile(tag, eng, reqs, spec):
     """A steady decode step of ``eng``: every lane decoding (64-token
     prompts of ``reqs``), no admission, no retirement; one step under
-    ``profile_one``, then the idle share over 10."""
+    ``profile_one``, then the idle share over 10.  Returns the 10 steps'
+    wall and device ms a step, idle share and kernels a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import serving
@@ -1705,9 +1739,13 @@ def decode_profile(tag, eng, reqs, spec):
             busy += (e.self_cuda_time_total if us is None else us) / 1e6
     if busy == 0:
         raise SystemExit(f"{tag}: the decode profile holds no device time")
+    kernels = sum(e.count for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")) / 10
     log(f"[{tag}] 10 steady decode steps: wall {wall10:.3f} s "
         f"({wall10 * 100:.2f} ms a step), device busy {busy:.3f} s, idle "
-        f"share {1 - busy / wall10:.3f}")
+        f"share {1 - busy / wall10:.3f}, {kernels:g} kernels a step")
+    return {"step_ms": wall10 * 100, "device_ms": busy * 100,
+            "idle": 1 - busy / wall10, "kernels": kernels}
 
 
 def phase_serve(hold, cfg):
@@ -2910,6 +2948,341 @@ def phase_ssm(eps):
     return rows
 
 
+# The modes phase: the reference's optimizer modes beyond the two-point
+# step on each config family.  Qwen3-14B at full width and depth runs
+# LoRA, prefix, ZO momentum and the swarm's sharded step (two loss
+# shards, one process); FO runs on granite-moe (SGD and AdamW) and
+# xlstm-350m (SGD) at full width and depth, and on deepseek-v2-lite at the
+# deepest depth whose FO-SGD state (a float32 master, a bf16 leaf and a
+# bf16 gradient: 8 B a parameter) fits MODES_FO_SHARE of the card.
+MODES_STEPS = 3
+MODES_FO_SHARE = 0.75             # of the card's memory for the FO state
+MODES_FO_ARCHS = (("granite-moe-1b-a400m", "sgd"),
+                  ("granite-moe-1b-a400m", "adamw"), ("xlstm-350m", "sgd"))
+MODES_MLA = "deepseek-v2-lite-16b"
+MODES_JAMBA = "jamba-v0.1-52b"
+
+
+def modes_parity(eps):
+    """Each kernel against its plain version at the shapes the modes runs
+    give it and no earlier phase ran: K3 on Qwen3-14B's seven layer
+    leaves and K4 on its untied head (``trans=False``) at the swarm's
+    batch shard (8 of 16 rows: x (2, 504, K)); K2's forward inside FO's
+    autograd ``Function`` at MLA's dh = 192 (v zero-padded from 128) and
+    at granite's GQA: its output, the row statistics m and l the
+    backward reads, and dq, dk, dv through it against autograd through
+    the plain version, with the plain float32 backward timed beside it;
+    K2 at prefix tuning's shape on Qwen3-14B (G = 5, Sk = 68, k_offset =
+    -5); K1 on Qwen3-14B's LoRA ``wv/B`` leaf (40, 8192) with 10 rows
+    active.  Returns the rows by kernel, each
+    naming the modes run whose launches it takes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import zo_axpy as kzo
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(2424)
+    out = {name: [] for name in SOURCES}
+    w_seed = 0xD1CE
+
+    def row(name, shape, run, err, fn, plain, lib, nbytes, tol=CLOSE_TOL,
+            extra=None, **work):
+        b_ms, b_by = bound(nbytes, **work)
+        r = dict(shape=shape, run=run, max_abs_err=err, tolerance=tol,
+                 ms=time_ms(fn, reps=20), plain_ms=time_ms(plain, reps=2),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=time_ms(lib, reps=20) if lib else None,
+                 **(extra or {}))
+        out[name].append(r)
+        log(f"[modes parity] {name} {shape}: max|err| {err:.3e}; "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), library {r['library_ms']}"
+            + "".join(f", {k} {v}" for k, v in (extra or {}).items()))
+
+    qw = configs.get(ZOO_ARCH)
+    D, H, KV, dh = qw.d_model, qw.n_heads, qw.n_kv_heads, qw.head_dim
+    M = 8 * 63                                   # one of two loss shards
+    args = ((w_seed, w_seed), (eps, -eps), (True, True))
+    for K, N, leaves in ((D, H * dh, "wq/wo"), (D, KV * dh, "wk/wv"),
+                         (D, qw.d_ff, "wg/wu"), (qw.d_ff, D, "wd")):
+        x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
+        w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * K ** -.5
+        err = close(fmm.pmatmul_stack(x, w, *args),
+                    fref.pmatmul_stack(x, w, *args),
+                    f"pmatmul_stack {ZOO_ARCH} shard {leaves}")
+        row("pmatmul_stack", f"{ZOO_ARCH} swarm shard {leaves}: x (2, {M}, "
+            f"{K}) @ W ({K}, {N}), P = 2 active", "swarm", err,
+            lambda: fmm.pmatmul_stack(x, w, *args),
+            lambda: fref.pmatmul_stack(x, w, *args),
+            lambda: torch.matmul(x, w), (x.numel() + w.numel() + 2 * M * N)
+            * 2, tensor_flops=2.0 * 2 * M * K * N,
+            instructions=K * N * RNG_OPS)
+        del x, w
+    V = qw.vocab
+    h = torch.randn((8, 63, D), generator=g, device=dev, dtype=bf)
+    w = torch.randn((D, V), generator=g, device=dev, dtype=bf) * 0.02
+    err = close(fmm.pmatmul(h, w, w_seed, eps, True),
+                fref.pmatmul(h, w, w_seed, eps, True),
+                f"pmatmul {ZOO_ARCH} head shard")
+    row("pmatmul", f"{ZOO_ARCH} swarm shard: h (8, 63, {D}) @ head/w ({D}, "
+        f"{V}), trans=False", "swarm", err,
+        lambda: fmm.pmatmul(h, w, w_seed, eps, True),
+        lambda: fref.pmatmul(h, w, w_seed, eps, True),
+        lambda: torch.matmul(h, w), (h.numel() + w.numel() + M * V) * 2,
+        tensor_flops=2.0 * M * D * V, instructions=D * V * RNG_OPS)
+    del h, w
+
+    # K2 inside FO: the forward's output and the row statistics m and l
+    # that the backward reads, and the gradients through the kernel's
+    # forward and the plain backward against autograd through the plain
+    # version (within two bf16 steps, as the card's unit test holds them)
+    for run, (B, S, kv, G, d, pad) in (
+            (f"fo {MODES_MLA} sgd", (16, 63, 16, 1, 192, 64)),
+            ("fo granite-moe-1b-a400m sgd", (16, 63, 8, 2, 64, 0))):
+        q = torch.randn((B, S, kv, G, d), generator=g, device=dev, dtype=bf)
+        k = torch.randn((B, S, kv, d), generator=g, device=dev, dtype=bf)
+        v = torch.randn((B, S, kv, d), generator=g, device=dev, dtype=bf)
+        dout = torch.randn(q.shape, generator=g, device=dev, dtype=bf)
+        if pad:                  # MLA pads v and cuts the output to dn
+            v[..., d - pad:] = 0
+            dout[..., d - pad:] = 0
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def fwd():
+            return kfa.FlashAttention.apply(*ins, True, 0, 0, 512, 512)
+        got = fwd()
+        err = close(got, kfa.flash_attention_plain(q, k, v, causal=True),
+                    f"flash_attention FO forward {run}")
+        o, m, l = kfa.flash_attention_plain(q, k, v, causal=True,
+                                            stats=True)
+        _, _, _, _, m_k, l_k = got.grad_fn.saved_tensors
+        st_err = max(close(m_k, m, f"flash_attention FO row max m {run}"),
+                     close(l_k, l, f"flash_attention FO row sum l {run}"))
+        got.backward(dout)
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        kfa.flash_attention_plain(*ref, causal=True).backward(dout)
+        g_err = max(close(a.grad, b.grad, f"flash_attention FO d{n} {run}",
+                          steps=2) for n, a, b in zip("qkv", ins, ref))
+        back = lambda: kfa.flash_attention_backward(  # noqa: E731
+            q, k, v, o, m, l, dout, causal=True)
+        qs, ks, vs = (t.reshape(B, S, -1, d).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        row("flash_attention", f"FO forward (stats) {tuple(q.shape)}"
+            + (f", v zero-padded from {d - pad}" if pad else ""), run, err,
+            fwd, lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=G > 1),
+            (2 * q.numel() + k.numel() + v.numel()) * 2,
+            tol=f"{CLOSE_TOL}; m and l alike; dq, dk, dv through the "
+            "kernel's forward within two such steps of autograd through "
+            "the plain version",
+            tensor_flops=4.0 * B * kv * G * d * (S * (S + 1) // 2),
+            extra={"stats_max_abs_err": st_err, "grad_max_abs_err": g_err,
+                   "plain_backward_ms": time_ms(back, reps=5)})
+        del q, k, v, dout, ins, ref, got, o, m, l, m_k, l_k, qs, ks, vs
+
+    # K2 at the prefix shape on Qwen3-14B: 5 always-visible keys ahead
+    P, B, S = 5, 16, 63
+    q = torch.randn((B, S, KV, H // KV, dh), generator=g, device=dev,
+                    dtype=bf)
+    k = torch.randn((B, S + P, KV, dh), generator=g, device=dev, dtype=bf)
+    v = torch.randn((B, S + P, KV, dh), generator=g, device=dev, dtype=bf)
+    kw = dict(causal=True, k_offset=-P)
+    err = close(kfa.flash_attention(q, k, v, **kw),
+                kfa.flash_attention_plain(q, k, v, **kw),
+                f"flash_attention {ZOO_ARCH} prefix")
+    qs = q.reshape(B, S, H, dh).transpose(1, 2).contiguous()
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(S, device=dev)[:, None]
+            >= torch.arange(S + P, device=dev)[None] - P)
+    row("flash_attention", f"{ZOO_ARCH} prefix: q {tuple(q.shape)}, k/v "
+        f"{tuple(k.shape)}, k_offset = -{P}", "prefix", err,
+        lambda: kfa.flash_attention(q, k, v, **kw),
+        lambda: kfa.flash_attention_plain(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True),
+        (2 * q.numel() + k.numel() + v.numel()) * 2,
+        tensor_flops=4.0 * B * H * dh * kfa.visible_keys(S, S + P, True, 0,
+                                                         -P))
+    del q, k, v, qs, ks, vs, mask
+
+    # K1 on the LoRA wv/B leaf of Qwen3-14B (rank 8)
+    L, n = qw.num_layers, 8 * KV * dh
+    theta = torch.randn((L, n), generator=g, device=dev, dtype=bf) * 0.02
+    mask = torch.zeros(L, dtype=torch.bool)
+    mask[torch.randperm(L, generator=torch.Generator().manual_seed(6))[
+        :L // 4]] = True
+    seed = 0x7777
+    got, want = theta.clone(), theta.clone()
+    kzo.zo_axpy_2d_(got, mask, seed, -eps, 1.0)
+    kref.zo_axpy_2d_(want, mask, seed, -eps, 1.0)
+    torch.cuda.synchronize()
+    on = mask.to(dev)
+    ulps = bf16_ulps(got[on], want[on]).max().item()
+    if ulps > 1 or not torch.equal(got[~on].view(torch.int16),
+                                   theta[~on].view(torch.int16)):
+        raise SystemExit(f"zo_axpy_2d LoRA wv/B ({L}, {n}): {ulps} bf16 ulp "
+                         "or a masked-off row changed")
+    n_act = int(mask.sum()) * n
+    row("zo_axpy_2d", f"{ZOO_ARCH} LoRA wv/B ({L}, {n}), {int(mask.sum())} "
+        f"of {L} rows active", "lora",
+        (got.float() - want.float()).abs().max().item(),
+        lambda: kzo.zo_axpy_2d_(got, mask, seed, -eps, 1.0),
+        lambda: kref.zo_axpy_2d_(want, mask, seed, -eps, 1.0), None,
+        n_act * 2 * 2, tol=f"masked rows bit-equal; active <= 1 bf16 ulp "
+        f"(got {ulps})", instructions=n_act * K1_OPS)
+    del theta, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def modes_run(tag, spec, want_fn, trainer_fn=None):
+    """``spec`` twice from the seed (``api.run``, or the trainer
+    ``trainer_fn()`` builds): launches equal to ``want_fn(history)``,
+    finite losses, and the two runs' losses, projected gradients and
+    trainable digests bit-equal.  Logs step seconds (median, min, max over both
+    runs' steps after the first) and the peak; returns the first run's
+    launches."""
+    import torch
+    seen, secs, peaks = [], [], []
+    for run in ("", " again"):
+        gc.collect()                  # the first run's trainer is freed
+        torch.cuda.empty_cache()
+        hist, launches, peak = run_counted(
+            f"{tag}{run}", spec,
+            trainer=None if trainer_fn is None else trainer_fn())
+        want = want_fn(hist)
+        if launches != want:
+            raise SystemExit(f"{tag}: launches {launches} != reckoned "
+                             f"{want}")
+        seen.append((hist["loss"], hist.get("projected_grad"),
+                     params_digest(hist["final_params"])))
+        secs += hist["step_seconds"][1:]
+        peaks.append(peak)
+        if not run:
+            first = launches
+        del hist
+    same = seen[0] == seen[1]
+    log(f"[{tag}] step seconds after the first, both runs: {stats(secs)}; "
+        f"peak {max(peaks):.2f} GiB; launches {first} as reckoned; the two "
+        f"runs from the seed bit-equal (losses, projected gradients, "
+        f"{len(seen[0][2])} trainable leaves): {same}")
+    if not same:
+        raise SystemExit(f"{tag}: two runs from the seed differ (losses "
+                         f"{seen[0][0]} vs {seen[1][0]})")
+    return first
+
+
+def fo_spec(arch, opt):
+    from repro_torch import api
+    return api.with_overrides(api.preset("fo-opt13b"), {
+        "model.arch": arch, "model.variant": "full",
+        "optimizer.fo_optimizer": opt, "run.steps": MODES_STEPS,
+        "run.log_every": 1, "run.eval_every": 0})
+
+
+def cut_params(cfg, depth):
+    """Parameters of ``cfg`` cut to ``depth`` repeats of its last stage
+    (counted on the meta device)."""
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+    st = cfg.stages
+    cut = dataclasses.replace(cfg, stages=st[:-1] + (dataclasses.replace(
+        st[-1], repeat=depth),))
+    return cut, lm.count_params(specs.param_specs(cut))
+
+
+def phase_modes(eps):
+    """The reference's other optimizer modes on the zoo's config families
+    (see the module docstring); returns the ``modes_shapes`` rows by
+    kernel."""
+    import torch
+    from repro_torch import api, configs
+    from repro_torch.core import zo
+    from repro_torch.estimators import costs
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    rows = modes_parity(eps)
+    runs = {}
+    qw = configs.get(ZOO_ARCH)
+    A = attention_layers(qw)
+    c = costs.step_counts("two_point", forward_backend="materialized")
+
+    def peft_want(hist):           # K1 a tree leaf a sweep, K2 a forward
+        n = len(zo.leaf_items(hist["final_params"]))
+        return {"zo_axpy_2d": n * c["axpy_sweeps"] * MODES_STEPS,
+                "flash_attention": A * c["forwards"] * MODES_STEPS,
+                "pmatmul_stack": 0, "pmatmul": 0}
+
+    for tag, ov, want in (
+            ("lora", {"runtime.peft": "lora"}, peft_want),
+            ("prefix", {"runtime.peft": "prefix"}, peft_want),
+            ("zo_momentum", {"optimizer.mode": "zo_momentum"}, None),
+            ("swarm", {"swarm.n_shards": 2,
+                       "runtime.forward_backend": "virtual"}, None)):
+        spec = zoo_spec(ZOO_ARCH, **{
+            "runtime.forward_backend": "materialized",
+            "run.steps": MODES_STEPS, **ov})
+        runs[tag] = modes_run(
+            f"modes {ZOO_ARCH} {tag}", spec, want or (
+                lambda h, sp=spec: expected_launches(
+                    sp, h["final_params"], MODES_STEPS)))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # FO at full width and depth: K2 a forward (its backward is plain)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, opt in MODES_FO_ARCHS:
+        spec = fo_spec(arch, opt)
+        A = attention_layers(configs.get(arch))
+        n = {"zo_axpy_2d": 0, "flash_attention": A * MODES_STEPS,
+             "pmatmul_stack": 0, "pmatmul": 0}
+        runs[f"fo {arch} {opt}"] = modes_run(
+            f"modes fo {arch} {opt}", spec, lambda h, n=n: n)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # FO-SGD on deepseek-v2-lite at the deepest depth its state fits
+    full = configs.get(MODES_MLA)
+    depth = max(d for d in range(1, full.stages[-1].repeat + 1)
+                if 8 * cut_params(full, d)[1] <= MODES_FO_SHARE * total)
+    cut, n_par = cut_params(full, depth)
+    log(f"[modes] {MODES_MLA} FO-SGD: 8 B a parameter at "
+        f"{cut.num_layers} of {full.num_layers} layers = "
+        f"{8 * n_par / 2 ** 30:.2f} GiB ({n_par / 1e9:.3f} B parameters), "
+        f"the deepest within {MODES_FO_SHARE:.0%} of the card's "
+        f"{total / 2 ** 30:.2f} GiB")
+    spec = fo_spec(MODES_MLA, "sgd")
+    d = api.derive(spec)
+    n = {"zo_axpy_2d": 0, "flash_attention": attention_layers(cut)
+         * MODES_STEPS, "pmatmul_stack": 0, "pmatmul": 0}
+    runs[f"fo {MODES_MLA} sgd"] = modes_run(
+        f"modes fo {MODES_MLA} sgd cut", spec, lambda h: n,
+        trainer_fn=lambda: Trainer(cut, d.task, d.tcfg, d.est_cfg,
+                                   fo_cfg=d.fo_cfg, _spec=spec, _derived=d))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # jamba's FO stays on the CPU: one period already exceeds the card
+    jb = configs.get(MODES_JAMBA)
+    _, per = cut_params(jb, 1)
+    log(f"[modes] {MODES_JAMBA} FO: one period of "
+        f"{len(jb.stages[-1].pattern)} layers holds {per / 1e9:.3f} B "
+        f"parameters, {8 * per / 2 ** 30:.2f} GiB at 8 B a parameter "
+        f"against the card's {total / 2 ** 30:.2f} GiB: not run on the card")
+    for name, rs in rows.items():
+        for r in rs:
+            r["launches"] = runs[r["run"]][name]
+    log(f"[modes] phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 # FO at the depths the float32 master weights leave room for on 80 GB:
 # SGD holds bf16 params and grads and float32 masters (8 B a parameter),
 # AdamW two float32 moments more (16 B); OPT-13B has 314.6 M parameters a
@@ -3501,6 +3874,13 @@ def mesh_shard_windows(cfg, eps):
                 r0 = r * size if split == "row" else 0
                 c0 = r * size if split == "column" else 0
                 ms = time_ms(lambda: fn(xr, wr, *args, **skw))
+                Ks, Ns = wr.shape
+                P = 1 if head else 2
+                b_ms, b_by = bound(
+                    (xr.numel() + wr.numel() + P * M * Ns) * 2,
+                    tensor_flops=2.0 * P * M * Ks * Ns,
+                    instructions=Ks * Ns * RNG_OPS)
+                lib_ms = time_ms(lambda: torch.matmul(xr, wr))
                 out.append({"matrix": f"{name} ({K}, {N})", "split": split,
                             "n": n, "shard_route": sorted(routes),
                             "column_bit_equal": same if split == "column"
@@ -3509,18 +3889,81 @@ def mesh_shard_windows(cfg, eps):
                             else None,
                             "max_abs_err_vs_plain": worst,
                             "shard_ms": ms, "unsharded_ms_over_n":
-                            full_ms / n, "last_window": [r0, c0]})
+                            full_ms / n, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": lib_ms,
+                            "last_window": [r0, c0]})
                 log(f"[mesh] {name} ({K}, {N}) {split} x{n}: shards "
                     f"within 1 bf16 step of plain (max|err| {worst:.3e}); "
                     + (f"concatenated bit-equal to unsharded: {same}"
                        if split == "column" else
                        f"partial sums {gap:.2f} bf16 steps from unsharded")
                     + f"; routes {sorted(routes)}; shard {ms:.4f} ms vs "
-                    f"unsharded/n {full_ms / n:.4f} ms")
+                    f"unsharded/n {full_ms / n:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}), torch.matmul {lib_ms:.4f} ms")
                 del parts
         del w, x, full
         torch.cuda.empty_cache()
     return out
+
+
+def mesh_engine(cfg, mesh, params):
+    """The paged engine at OPT-13B full width and depth with the serve
+    phase's settings and requests, plain and then over ``mesh`` (the
+    1 x 1 one): greedy tokens bit-equal, K1-K4 launched no time (the
+    paged attention is plain, as the reference's), the same kernels a
+    steady decode step (within one), and for each the TTFT, tok/s and
+    that step's wall and device time, idle share and kernels
+    (``decode_profile``)."""
+    import statistics
+    import torch
+    from repro_torch import api, serving
+    from repro_torch.distributed import ctx
+
+    sv = api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, **SERVE_OVERRIDES})
+    reqs = serve_requests(cfg.vocab, seed=sv.run.seed)
+    toks, steady = {}, {}
+    for tag, m in (("plain", None), ("mesh 1 x 1", mesh)):
+        eng = serving.Engine(cfg, params, sv.serving, mesh=m, device="cuda")
+        (got, results, wall), n, peak, _ = counted(lambda: drain(eng, [
+            serving.Request(rid=rid, tokens=t, seed=SEED_BASE + rid)
+            for rid, t in reqs]))
+        ttft = sorted(r.ttft for r in results)
+        n_tok = sum(len(t) for t in got.values())
+        log(f"[mesh] engine {tag}: {len(results)} requests, {n_tok} tokens "
+            f"in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+            f"{eng.n_prefill_calls} prefill calls, {eng.n_decode_steps} "
+            f"decode steps; TTFT median {statistics.median(ttft):.3f} s, "
+            f"p90 {ttft[int(0.9 * (len(ttft) - 1))]:.3f} s; peak "
+            f"{peak:.2f} GiB; launches {n}")
+        if (sorted(got) != list(range(SERVE_REQUESTS)) or eng.pool.in_use
+                or any(n.values())):
+            raise SystemExit(f"mesh: engine {tag} results {sorted(got)}, "
+                             f"{eng.pool.in_use} pages left, launches {n}")
+        steady[tag] = decode_profile(f"mesh engine {tag}", eng, reqs, sv)
+        toks[tag] = got
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    ctx.set_mesh(None)
+    diff = sorted(r for r in toks["plain"]
+                  if toks["plain"][r] != toks["mesh 1 x 1"][r])
+    log(f"[mesh] engine over the 1 x 1 mesh against the plain engine: "
+        f"greedy tokens of {len(toks['plain'])} requests bit-equal: "
+        f"{not diff}")
+    if diff:
+        raise SystemExit(f"mesh: engine tokens differ for rids {diff}")
+    a, b = steady["plain"], steady["mesh 1 x 1"]
+    log(f"[mesh] engine decode step over the 1 x 1 mesh against plain: "
+        f"wall {b['step_ms']:.2f} / {a['step_ms']:.2f} ms (x"
+        f"{b['step_ms'] / a['step_ms']:.2f}), device {b['device_ms']:.2f} / "
+        f"{a['device_ms']:.2f} ms, kernels {b['kernels']:g} / "
+        f"{a['kernels']:g} a step")
+    # the 10-step window may catch a kernel or two more or less; a kernel
+    # added or dropped on every step moves the mean by one
+    if abs(b["kernels"] - a["kernels"]) >= 1:
+        raise SystemExit("mesh: the engine over the 1 x 1 mesh runs other "
+                         "kernels a decode step than the plain engine")
 
 
 def mesh_grid():
@@ -3636,6 +4079,11 @@ def phase_mesh(eps):
         del params, placed, step
         gc.collect()
         torch.cuda.empty_cache()
+
+        # 3. the paged engine over the same mesh against the plain one
+        mesh_engine(cfg, mesh, fresh())
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -3677,9 +4125,9 @@ def phase_mesh(eps):
     if rec["useful_flop_ratio"] > MESH_USEFUL_GATE:
         raise SystemExit("mesh: useful_flop_ratio above 1.05")
 
-    # 3. K3/K4 per shard at full width
+    # 4. K3/K4 per shard at full width
     rows = mesh_shard_windows(cfg, eps)
-    # 4. the grid entry point
+    # 5. the grid entry point
     mesh_grid()
     log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
     return {"pmatmul_stack": [r for r in rows if r["matrix"][:4] != "head"],
@@ -3923,7 +4371,7 @@ SOURCES = {
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
           "replay", "estimators", "momentum", "tasks", "peft", "serve", "zoo",
-          "moe", "ssm", "fo", "resume", "swarm", "mesh")
+          "moe", "ssm", "modes", "fo", "resume", "swarm", "mesh")
 
 
 def main() -> int:
@@ -4000,6 +4448,9 @@ def main() -> int:
     if "ssm" in phases:
         for name, shapes in phase_ssm(spec.optimizer.eps).items():
             rows.setdefault(name, {})["ssm_shapes"] = shapes
+    if "modes" in phases:
+        for name, shapes in phase_modes(spec.optimizer.eps).items():
+            rows.setdefault(name, {})["modes_shapes"] = shapes
     if "fo" in phases:
         phase_fo(cfg)
     if "resume" in phases:

@@ -13,7 +13,7 @@ A spec JSON written by ``repro.api.to_json`` runs unchanged here.
 from repro_torch.api import presets
 from repro_torch.api.presets import PRESETS
 from repro_torch.api.runners import (Derived, derive, dryrun, dryrun_cell,
-                                     evaluate, run, sweep)
+                                     evaluate, preset, run, sweep)
 from repro_torch.api.spec import (Experiment, Estimator, Model, Optimizer,
                                   Run, Runtime, Serving, SpecError, Swarm,
                                   Task, Telemetry, check_resume_spec,
@@ -27,7 +27,3 @@ __all__ = ["Derived", "Estimator", "Experiment", "Model", "Optimizer",
            "dryrun_cell", "evaluate",
            "from_dict", "from_json", "preset", "presets", "run", "sweep",
            "to_dict", "to_json", "validate", "with_overrides"]
-
-
-def preset(name: str) -> Experiment:
-    return presets.get(name)

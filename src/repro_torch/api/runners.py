@@ -8,6 +8,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 from repro_torch import estimators
 from repro_torch import tasks as tasks_mod
+from repro_torch.api import presets as presets_mod
 from repro_torch.api.spec import Experiment, SpecError, to_dict, with_overrides
 from repro_torch.api.validate import n_drop_for, resolve_model
 from repro_torch.api.validate import validate as validate_spec
@@ -65,6 +66,10 @@ def derive(spec: Experiment) -> Derived:
     prefix_cfg = prefix_mod.PrefixConfig(n_prefix=rt.prefix_tokens)
     return Derived(mcfg, task, tcfg, est_cfg, fo_cfg, n_drop, lora_cfg,
                    prefix_cfg)
+
+
+def preset(name: str) -> Experiment:
+    return presets_mod.get(name)
 
 
 def _summary(spec: Experiment, trainer, hist: Dict) -> Dict:

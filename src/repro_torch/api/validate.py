@@ -11,9 +11,9 @@ reference's rules, with telemetry (tracing, run directories, optimizer
 health) under the reference's telemetry rules, and the seed-synchronized
 swarm (``swarm.*``, the decomposed sharded step of ``swarm/shardstep.py``)
 under the reference's swarm rules, and the serving engine's knobs
-(``serving.*``) under the reference's serving rules.  Meshes raise
-:class:`SpecError` naming the field and saying "not yet ported", before
-any parameter is allocated.
+(``serving.*``) under the reference's serving rules.  Both meshes
+(``runtime.mesh``: ``single``, ``multi_pod``) validate as in the
+reference; only the dry run reads the field.
 """
 from typing import List
 

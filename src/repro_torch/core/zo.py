@@ -16,6 +16,7 @@ computed in the reference's op order; ``tree_z_norm`` is the exact
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
@@ -242,6 +243,15 @@ def tree_axpy_(params, spec: ZOSpec, seed: int, scale, masks, idxs=None, *,
                       decay=decay, mask=mask, active_idx=aidx,
                       backend=backend)
     return params
+
+
+def tree_axpy(params, spec: ZOSpec, seed: int, scale, masks, idxs=None, *,
+              decay=1.0, backend="dense"):
+    """The functional :func:`tree_axpy_`: a new tree holding decay*theta +
+    scale*z on active layers (a copy elsewhere); ``params`` is left as
+    it was."""
+    return tree_axpy_(copy.deepcopy(params), spec, seed, scale, masks, idxs,
+                      decay=decay, backend=backend)
 
 
 @dataclasses.dataclass(frozen=True)

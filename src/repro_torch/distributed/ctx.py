@@ -11,10 +11,18 @@ the scatter operand, 80 GiB a step on granite-moe).
 tensor (single-device training, CPU tests), and drops the axes that do
 not divide, so the same model code serves every cell of the grid.  On a
 DTensor it ``redistribute``s to the reference's spec.
+
+The serving arena's page-sharded leaves have no DTensor rule for the
+paged engine's flat scatter and page-table gather: :func:`paged_kv` and
+:func:`copy_page` run them per rank, on the pages each rank holds, and
+combine with one all-reduce whose every element has exactly one
+contributor (the others add -0.0, which leaves any value's bits as
+they are).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 _MESH = None
 
@@ -125,8 +133,7 @@ def matmul(x, w):
 
 def _whole(tree):
     """A parameter dict with every DTensor leaf gathered whole (local)."""
-    return {k: _whole(v) if isinstance(v, dict) else
-            (v.full_tensor() if is_dtensor(v) else v)
+    return {k: _whole(v) if isinstance(v, dict) else whole(v)
             for k, v in tree.items()}
 
 
@@ -165,3 +172,83 @@ def rowwise(fn, x, params, cache=None):
         new = {k: wrap(t, cache[k]).redistribute(mesh, cache[k].placements)
                for k, t in new.items()}
     return out, new
+
+
+def whole(x):
+    """``x`` as a plain tensor holding all of it (a DTensor gathered)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _page_window(leaf, pdim: int):
+    """(local tensor, first page, local page count, process group or
+    None) of an arena DTensor whose page dim is ``pdim``; the group is
+    None where the rank holds every page."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import local_window
+
+    loc = leaf.to_local()
+    if loc.shape[pdim] == leaf.shape[pdim]:
+        return loc, 0, loc.shape[pdim], None
+    mesh = leaf.device_mesh
+    mdim = next(i for i, p in enumerate(leaf.placements) if p == Shard(pdim))
+    _, off = local_window(leaf.shape, mesh, leaf.placements)
+    return loc, off[pdim], loc.shape[pdim], mesh.get_group(mdim)
+
+
+def paged_kv(leaf, pages, flat, new):
+    """Write ``new`` (N, KV, dh) at the flat slots ``flat`` (N,) (page ·
+    page_size + offset) of a layer's arena leaf (n_pages, page_size, KV,
+    dh) in place, then gather the rows of the page table ``pages`` (B,
+    max_pages) in position order: (B, max_pages·page_size, KV, dh).
+
+    On a page-sharded DTensor leaf each rank writes only the slots of
+    its own pages, at their local offset, and gathers its own pages'
+    rows into a buffer of -0.0; one all-reduce (sum) over the axis that
+    shards the pages gives every rank the whole of it, bit for bit.
+    Where the rank holds every page (a plain tensor, a replicated leaf)
+    it is the plain write and gather."""
+    new = whole(new)
+    B = pages.shape[0]
+    if is_dtensor(leaf):
+        loc, p0, n, group = _page_window(leaf, 0)
+    else:
+        loc, p0, n, group = leaf, 0, leaf.shape[0], None
+    psz = loc.shape[1]
+    rows = loc.view(n * psz, *loc.shape[2:])
+    if group is None:
+        rows.index_copy_(0, flat, new)
+        return loc[pages].reshape(B, -1, *loc.shape[2:])
+    lo = p0 * psz
+    mine = (flat >= lo) & (flat < lo + n * psz)
+    rows.index_copy_(0, flat[mine] - lo, new[mine])
+    idx = pages - p0
+    own = (idx >= 0) & (idx < n)
+    got = loc[idx.clamp(0, n - 1)]                   # (B, max_pages, psz, ..)
+    got = torch.where(own[:, :, None, None, None], got,
+                      torch.full((), -0.0, dtype=got.dtype,
+                                 device=got.device))
+    dist.all_reduce(got, group=group)
+    return got.reshape(B, -1, *loc.shape[2:])
+
+
+def copy_page(leaf, src: int, dst: int):
+    """Copy physical page ``src`` into ``dst`` over every layer of an
+    arena leaf (R, n_pages, ...), in place (copy-on-write); per rank on
+    a page-sharded DTensor leaf, the source page's owner sending it to
+    the destination's by one all-reduce."""
+    if not is_dtensor(leaf):
+        leaf[:, dst].copy_(leaf[:, src])
+        return
+    loc, p0, n, group = _page_window(leaf, 1)
+    if group is None:
+        loc[:, dst].copy_(loc[:, src])
+        return
+    if p0 <= src < p0 + n:
+        page = loc[:, src - p0].clone()
+    else:
+        page = torch.full((loc.shape[0], *loc.shape[2:]), -0.0,
+                          dtype=loc.dtype, device=loc.device)
+    dist.all_reduce(page, group=group)
+    if p0 <= dst < p0 + n:
+        loc[:, dst - p0].copy_(page)

@@ -23,9 +23,10 @@ A spec is a plain tuple with one entry a dim: ``None``, an axis name, or
 a tuple of axis names (the reference's ``PartitionSpec`` entries).
 :func:`placements` maps it onto DTensor placements of a
 ``DeviceMesh``; ``params_sharding`` / ``cache_sharding`` /
-``batch_sharding`` place every leaf.  A leaf's local shard is its slice
-of the full tensor each rank already holds (the seeded weights are the
-same on every rank), so placing moves no data.  A mesh is anything with
+``batch_sharding`` / ``arena_sharding`` place every leaf.  A leaf's
+local shard is its slice of the full tensor each rank already holds
+(the seeded weights are the same on every rank), so placing moves no
+data.  A mesh is anything with
 ``mesh_dim_names`` and ``shape`` (a ``DeviceMesh``) or with
 ``axis_names`` and a ``shape`` dict (a shape-only stand-in).
 """
@@ -232,6 +233,14 @@ def cache_sharding(caches, mesh):
     """A cache tree (``lm.init_cache``) as DTensors by :func:`cache_pspec`."""
     return _map_tree(lambda ps, t: distribute(
         t, mesh, placements(cache_pspec(ps, t.shape, mesh), mesh)), caches)
+
+
+def arena_sharding(arena, mesh):
+    """A serving KV arena (``lm.init_paged_cache``) as DTensors by
+    :func:`arena_pspec`: the page dim on ``model`` where the page count
+    divides it, else replicated."""
+    return _map_tree(lambda ps, t: distribute(
+        t, mesh, placements(arena_pspec(ps, t.shape, mesh), mesh)), arena)
 
 
 def batch_sharding(batch, mesh):

@@ -5,7 +5,8 @@ One prompt batch goes in and every lane decodes in step: ``lm.prefill``
 (kernel K2 over the prompt) then ``lm.serve_step`` per token, greedy.
 ``python -m repro_torch.launch serve --engine lockstep`` drives it; the
 paged engine (``repro_torch.serving``) is the default where the model
-supports it.
+supports it.  ``python -m repro_torch.launch.serve`` is the legacy shim
+(:func:`main`) over that command, defaulting to ``--arch xlstm-350m``.
 """
 from __future__ import annotations
 
@@ -26,3 +27,23 @@ def generate(cfg, params, tokens, gen_steps: int, max_seq: int):
         tok = torch.argmax(logits, -1)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1)
+
+
+def main(argv=None):
+    """Shim over ``python -m repro_torch.launch serve`` (``launch/cli.py``):
+    spec flags (--arch/--variant/--seed and any --set) plus the serve
+    extras; ``--arch`` defaults to ``xlstm-350m``, as the reference's
+    legacy surface does."""
+    import sys
+
+    from repro_torch.launch import cli
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not any(a == "--arch" or a.startswith("--arch=")
+               or a == "--model.arch" or a.startswith("--model.arch=")
+               for a in argv):
+        argv = ["--arch", "xlstm-350m"] + argv
+    return cli.main(["serve"] + argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,9 @@ Decode and paged attention are plain PyTorch, as the reference's are
 
 Under a registered mesh (``distributed/ctx.py``) train and prefill
 attention pin q/k/v where the reference does: KV heads on ``model`` when
-they divide it, else query stripes.
+they divide it, else query stripes.  The paged mode writes and gathers
+a page-sharded arena per rank (``ctx.paged_kv``) and attends over the
+whole K/V on every rank, the dense single-device function.
 """
 from __future__ import annotations
 
@@ -292,17 +294,14 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
         v = ctx.constrain(v, "batch", None, "model", None)
         q = ctx.constrain(q, "batch", None, "model", None, None)
     if mode == "paged":
-        Pn, psz = cache["k"].shape[0], cache["k"].shape[1]
+        psz = cache["k"].shape[1]
         page = torch.gather(pages, 1, torch.div(positions, psz,
                                                 rounding_mode="floor"))
         flat = (page * psz + positions % psz).reshape(-1)
-        k_arena = cache["k"].view(Pn * psz, KV, dh)
-        v_arena = cache["v"].view(Pn * psz, KV, dh)
-        k_arena.index_copy_(0, flat, k.reshape(B * S, KV, dh))
-        v_arena.index_copy_(0, flat, v.reshape(B * S, KV, dh))
-        kg = cache["k"][pages].reshape(B, -1, KV, dh)  # (B, max_pg*psz, ..)
-        vg = cache["v"][pages].reshape(B, -1, KV, dh)
-        o = paged_attention(q, kg, vg, positions)
+        # (B, max_pg*psz, KV, dh), per rank on a page-sharded arena
+        kg = ctx.paged_kv(cache["k"], pages, flat, k.reshape(B * S, KV, dh))
+        vg = ctx.paged_kv(cache["v"], pages, flat, v.reshape(B * S, KV, dh))
+        o = paged_attention(ctx.whole(q), kg, vg, positions)
     elif mode == "decode":
         cache["k"][:, pos:pos + 1] = k
         cache["v"][:, pos:pos + 1] = v

@@ -117,6 +117,15 @@ MIXER_PARAMS = {"attn": layers.attn_params, "mla": layers.mla_params,
 FFNS = ("dense", "moe", "none")
 
 
+def shallow_copy(params: LM) -> LM:
+    """A new parameter tree over the same leaf tensors: re-placing its
+    leaves (``sharding.params_sharding``) leaves ``params`` as it was."""
+    def tree(node):
+        return {k: tree(v) if isinstance(v, ParamNode) else v.data
+                for k, v in node.items()}
+    return LM(params.cfg, tree(params))
+
+
 def _check_supported(cfg: ModelConfig):
     """The port runs every block of the reference's zoo: ``attn``/``mla``
     and the recurrent ``mamba``/``mlstm``/``slstm`` mixers with
@@ -570,6 +579,17 @@ def lm_loss(cfg: ModelConfig, params: LM, batch, aux_coef=0.0,
         loss = chunked_ce(cfg, params, hidden, batch["labels"],
                           batch["loss_mask"], perturb=perturb)
         return loss if aux is None else loss + aux_coef * aux
+
+
+def lm_loss_pair(cfg: ModelConfig, params: LM, batch, aux_coef=0.0,
+                 perturb=None):
+    """The paired-probe entry point: ``perturb`` must be a stacked ctx
+    (``fused.make_pair_ctx`` / ``make_stack_ctx``); returns the (P,)
+    per-probe loss vector of one fused forward."""
+    if perturb is None or perturb.pair is None:
+        raise ValueError("lm_loss_pair requires a stacked PerturbCtx "
+                         "(fused.make_pair_ctx / make_stack_ctx)")
+    return lm_loss(cfg, params, batch, aux_coef=aux_coef, perturb=perturb)
 
 
 # ---------------------------------------------------------------- serving

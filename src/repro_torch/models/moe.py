@@ -14,6 +14,11 @@ sorted assignments, so the port gathers each token's k weighted expert
 outputs in the order of their sorted positions (the order the
 reference's float32 scatter-add visits them) and adds them in that
 order, where ``index_add_`` would add with atomics in no fixed order.
+So is the gradient: every gather with a gradient reads its source at
+distinct indices (a permutation, or a slot that only a dropped,
+zero-weighted assignment shares), so autograd's scatter-add back puts
+one term on each element, and a token's k dispatch rows are summed by
+the backward of an ``expand``, in a fixed order.
 
 Top-k comes from a stable descending sort: ``lax.top_k`` breaks ties
 toward the lower expert index, which ``torch.topk`` does not promise.
@@ -166,10 +171,14 @@ def _moe_local(cfg, p, x, means=None):
 
     # ---- per-row sort-based dispatch -----------------------------------
     order, e_s, keep, slot = dispatch(top_e, E, C)
-    tok_s = torch.div(order, k, rounding_mode="floor")   # flat i = t·k + r
     w_s = torch.gather(top_w.reshape(B, S * k), 1, order)
+    # each assignment's row of h, read from h repeated k times (flat
+    # index t·k + r) at the sort permutation: the gradient goes back
+    # through a permutation and a sum over k in a fixed order, where
+    # reading h at the token index would scatter-add k rows a token
+    hk = h[:, :, None].expand(B, S, k, D).reshape(B, S * k, D)
     buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf.scatter_(1, slot[..., None].expand(-1, -1, D), _rows(h, tok_s))
+    buf.scatter_(1, slot[..., None].expand(-1, -1, D), _rows(hk, order))
     eb = buf[:, :-1].reshape(B, E, C, D)
 
     # ---- expert FFN (batched SwiGLU over the experts) ------------------

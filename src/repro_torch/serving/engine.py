@@ -31,6 +31,7 @@ host only when the lane set changes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Sequence, Set, Tuple
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch import obs as obs_mod
 from repro_torch import resolve_device
+from repro_torch.distributed import ctx, sharding
 from repro_torch.models import lm
 from repro_torch.serving import sampling
 from repro_torch.serving.pool import KVPool
@@ -75,13 +77,16 @@ class GenResult:
 class Engine:
     """Drive ``spec.serving`` over a model: submit() requests, step()
     until drained (or just run()).  ``device`` is where the arena lives
-    and the steps run (None: the card); it must hold ``params``."""
+    and the steps run (None: the card); it must hold ``params``.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis, every rank running
+    the same engine): registered with ``ctx.set_mesh``; the parameters
+    placed by ``sharding.params_sharding``, the arena by
+    ``sharding.arena_sharding`` (pages on ``model``); logits come back
+    replicated, so every rank samples the same tokens."""
 
     def __init__(self, cfg, params, serving, mesh=None, clock=None,
                  obs=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh is not yet ported to repro_torch")
         if not lm.supports_paged(cfg):
             kinds = sorted({b.kind for s in cfg.stages for b in s.pattern})
             raise EngineUnsupported(
@@ -94,7 +99,7 @@ class Engine:
             raise ValueError(f"params live on {held}, engine device is "
                              f"{self.device}")
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
         self.serving = serving
         self.clock = clock or time.perf_counter
         # learned position tables are finite: the engine cannot place a
@@ -114,6 +119,16 @@ class Engine:
         self.arena = lm.init_paged_cache(cfg, serving.n_pages,
                                          serving.page_size,
                                          device=self.device)
+        if mesh is not None:
+            # the reference's in/out shardings: params by their rules
+            # (on a copy of the tree: the caller's stays as it was), the
+            # arena's pages on `model`; tokens, page table, positions and
+            # seeds stay plain tensors, counted replicated (``_spmd``)
+            ctx.set_mesh(mesh)
+            params = sharding.params_sharding(cfg, lm.shallow_copy(params),
+                                              mesh)
+            self.arena = sharding.arena_sharding(self.arena, mesh)
+        self.params = params
         self._sample = sampling.make_sampler(serving.temperature,
                                              serving.top_k)
         self._shapes: Set[Tuple[int, int]] = set()
@@ -156,9 +171,17 @@ class Engine:
     # -------------------------------------------------------- the steps
     def _paged(self, toks, table, pos, sel):
         self._shapes.add(tuple(toks.shape))
-        logits, _ = lm.paged_step(self.cfg, self.params, self.arena, toks,
-                                  table, pos, sel)
-        return logits
+        with self._spmd():
+            logits, _ = lm.paged_step(self.cfg, self.params, self.arena,
+                                      toks, table, pos, sel)
+        return ctx.whole(logits)         # replicated, as the reference's
+
+    def _spmd(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+        return implicit_replication()
 
     def _cstep(self, src: int, dst: int):
         # copy-on-write page duplication: physical page src into dst
@@ -166,7 +189,7 @@ class Engine:
         for blocks in self.arena.values():
             for leaves in blocks.values():
                 for t in leaves.values():
-                    t[:, dst].copy_(t[:, src])
+                    ctx.copy_page(t, src, dst)
 
     def _sample_gauges(self):
         self._m_queue.set(len(self.sched.queue))

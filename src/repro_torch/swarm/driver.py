@@ -64,6 +64,14 @@ def _worker_env() -> Dict[str, str]:
     return env
 
 
+def spawn_worker(host: str, port: int,
+                 device: Optional[str] = None) -> subprocess.Popen:
+    """One local worker process attached to the coordinator at
+    ``host:port``, on ``device`` (None: the card)."""
+    return subprocess.Popen(_worker_cmd(host, port, device or "cuda"),
+                            env=_worker_env())
+
+
 class _Proc:
     """One spawned worker and the file its standard output goes to."""
 

@@ -423,8 +423,6 @@ def test_engine_refuses_what_it_does_not_serve(opt_smoke, monkeypatch):
     mlstm = tc.with_(stages=(StageCfg(2, (BlockCfg("mlstm"),)),))
     with pytest.raises(tsv.EngineUnsupported, match="attn mixers"):
         tsv.Engine(mlstm, tp, tapi.Serving(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsv.Engine(tc, tp, tapi.Serving(), mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tsv.Engine(tc, tp, tapi.Serving())          # the card by default
