@@ -271,7 +271,23 @@ when it fails:
              grid entry point ``python -m repro_torch.launch dryrun --arch
              opt-13b`` at ``train_4k`` and ``decode_32k`` on the fake
              16 x 16 mesh: each cell's terms, dominant term and per-device
-             GiB, and its seconds.
+             GiB, and its seconds.  Before the dry run, over the same
+             1 x 1 mesh, the zoo's MoE and Mamba configs, whose blocks
+             take the tensor-parallel route (``ctx.tp_block``) with
+             groups of one: deepseek-v2-lite-16b and granite-moe at full
+             width and depth, jamba at full width and the deepest of
+             ``SSM_PERIODS`` whose mesh run fits (3 periods deep first),
+             3 steps of the same ``make_zo_step`` from the seed each,
+             mesh then plain: losses, projected gradients and leaf bit
+             sums equal, K1/K2 launches as reckoned, every MoE and Mamba
+             layer on the TP route once a forward and on ``rowwise``
+             never (``ctx.ROUTES``); the step wall, a profiled step's
+             device time and kernels, and the peak, side by side.  Then
+             jamba's lockstep prefill (4, 128) and 3 decode steps over
+             placed caches against the plain lockstep (logits and tokens
+             bit-equal, K2 a prefill's attention layers), and granite's
+             paged engine over 4 requests as ``Engine(mesh=...)`` against
+             the plain engine (tokens bit-equal, no K1-K4 launch).
 
 For a quick kernel check: ``--phases build,rng,parity``.
 
@@ -1672,7 +1688,7 @@ def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check,
 def profile_one(tag, fn, what):
     """``fn()`` once under ``torch.profiler``: its wall and device busy
     ms, the device kernels by time and the aten ops that launched them.
-    Returns (wall, busy) seconds."""
+    Returns (wall, busy) seconds and the kernels it ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1704,7 +1720,7 @@ def profile_one(tag, fn, what):
     if busy == 0:
         raise SystemExit(f"{tag}: the profile of {what} holds no device "
                          "time")
-    return one, busy
+    return one, busy, sum(n for _, n in dev_us.values())
 
 
 def decode_profile(tag, eng, reqs, spec):
@@ -3966,6 +3982,275 @@ def mesh_engine(cfg, mesh, params):
                          "kernels a decode step than the plain engine")
 
 
+MESH_ZOO = ("deepseek-v2-lite-16b", "granite-moe-1b-a400m",
+            "jamba-v0.1-52b")
+MESH_ZOO_STEPS = 3
+MESH_ZOO_LOCKSTEP = (4, 128, 4)     # jamba: batch, prompt, new tokens
+MESH_ZOO_REQUESTS = 4               # granite's engine: requests, none shared
+MESH_ZOO_NEW = 8                    # new tokens a request
+
+
+def mesh_zoo_routes(cfg, forwards):
+    """The routes ``forwards`` forwards of ``cfg`` must count: every MoE
+    and Mamba layer on ``ctx.tp_block`` once a forward (the 1 x 1 mesh
+    shards every leaf over a size-1 dim), ``rowwise`` never."""
+    moe = sum(st.repeat for st in cfg.stages for b in st.pattern
+              if b.ffn == "moe")
+    mamba = sum(st.repeat for st in cfg.stages for b in st.pattern
+                if b.kind == "mamba")
+    want = {}
+    if moe:
+        want["tp", "moe"] = moe * forwards
+    if mamba:
+        want["tp", "mamba"] = mamba * forwards
+    return want
+
+
+def mesh_zoo_run(tag, cfg, zcfg, batch, mesh):
+    """``MESH_ZOO_STEPS`` steps of ``make_zo_step`` on ``cfg``'s weights
+    from the seed, plain (``mesh`` None) or over the 1 x 1 mesh, the
+    launch counters and ``ctx.ROUTES`` zeroed just before and read just
+    after; then one more step profiled.  Returns the run's readings and
+    its parameters."""
+    import statistics
+    import torch
+    from repro_torch.core import zo
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    if mesh is None:
+        step = zo.make_zo_step(functools.partial(lm.lm_loss, cfg),
+                               zo.build_spec(params, lm.zo_group_fn), zcfg)
+    else:
+        step, _ = specs.build_train_step(cfg, mesh, zcfg=zcfg)
+        params = sharding.params_sharding(cfg, params, mesh)
+        batch = sharding.batch_sharding(batch, mesh)
+    ctx.ROUTES.clear()
+    (losses, grads, walls), n, peak, _ = counted(
+        lambda: mesh_run(tag, step, params, batch, MESH_ZOO_STEPS))
+    routes = dict(ctx.ROUTES)
+    out = {"losses": losses, "grads": grads, "launches": n, "peak": peak,
+           "routes": routes, "digest": params_digest(params),
+           "wall": statistics.median(walls[1:]),
+           "leaves": len(zo.leaf_items(params))}
+    out["prof_wall"], out["device"], out["kernels"] = profile_one(
+        f"mesh {tag}", lambda: step(params, batch, MESH_ZOO_STEPS, 0xC0FFEE),
+        "one more step")
+    ctx.set_mesh(None)
+    return out, params
+
+
+def mesh_zoo_compare(arch, cfg, zcfg, plain, mesh):
+    """The plain run against the 1 x 1 mesh run of ``arch``: losses,
+    projected gradients and every leaf's bit sum equal; K1/K2 launches
+    as reckoned (K1 a leaf a sweep, K2 an attention layer a forward) on
+    both; every MoE and Mamba layer on the TP route once a forward, on
+    ``rowwise`` never; the step wall, device time, kernels and peak
+    side by side."""
+    steps, A = MESH_ZOO_STEPS, attention_layers(cfg)
+    want = {"zo_axpy_2d": plain["leaves"] * 3 * steps,
+            "flash_attention": 2 * A * steps, "pmatmul_stack": 0,
+            "pmatmul": 0}
+    routes = mesh_zoo_routes(cfg, 2 * steps)
+    same = (mesh["losses"] == plain["losses"]
+            and mesh["grads"] == plain["grads"]
+            and mesh["digest"] == plain["digest"])
+    log(f"[mesh] {arch} ({cfg.num_layers} layers, B 16, S 63, {zcfg}): "
+        f"{steps} steps over the 1 x 1 mesh vs plain: losses "
+        f"{mesh['losses']} vs {plain['losses']}; projected grads equal "
+        f"{mesh['grads'] == plain['grads']}; {plain['leaves']} leaf digests "
+        f"equal {mesh['digest'] == plain['digest']}; launches mesh "
+        f"{mesh['launches']}, plain {plain['launches']}, reckoned {want}; "
+        f"routes {mesh['routes']} (reckoned {routes}), plain "
+        f"{plain['routes']}")
+    log(f"[mesh] {arch} {smi('name,power.limit')}: step wall median "
+        f"{mesh['wall']:.4f} s vs plain {plain['wall']:.4f} s (x"
+        f"{mesh['wall'] / plain['wall']:.2f}); one profiled step: wall "
+        f"{mesh['prof_wall']:.4f} / {plain['prof_wall']:.4f} s, device "
+        f"{mesh['device']:.4f} / {plain['device']:.4f} s, kernels "
+        f"{mesh['kernels']} / {plain['kernels']}; peak "
+        f"{mesh['peak']:.2f} / {plain['peak']:.2f} GiB")
+    if not same:
+        raise SystemExit(f"mesh: {arch} over the 1 x 1 mesh is not the "
+                         "plain step bit for bit")
+    if mesh["launches"] != want or plain["launches"] != want:
+        raise SystemExit(f"mesh: {arch} launches {mesh['launches']} / "
+                         f"{plain['launches']} != reckoned {want}")
+    if mesh["routes"] != routes or plain["routes"]:
+        raise SystemExit(f"mesh: {arch} routes {mesh['routes']} != "
+                         f"reckoned {routes} (plain {plain['routes']})")
+
+
+def mesh_zoo_lockstep(tag, cfg, params, mesh):
+    """A lockstep prefill (``MESH_ZOO_LOCKSTEP``) and greedy decode
+    steps, plain (``lm.prefill``/``serve_step``) or over ``mesh``
+    (``specs.build_prefill_step``/``build_serve_step``: the caches placed
+    by ``cache_pspec``, Mamba's on their channels), the counters zeroed
+    just before and read just after: (logits by step, tokens, launches,
+    routes)."""
+    import torch
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+
+    Bl, Sl, Gl = MESH_ZOO_LOCKSTEP
+    toks = torch.randint(0, cfg.vocab, (Bl, Sl), generator=torch.Generator(
+        ).manual_seed(5)).cuda()
+    place = lambda x: x  # noqa: E731
+    if mesh is None:
+        prefill = lambda p, x: lm.prefill(cfg, p, x, Sl + Gl)  # noqa: E731
+        serve = lambda p, c, x, i: lm.serve_step(cfg, p, c, x, i)  # noqa
+    else:
+        prefill, _ = specs.build_prefill_step(cfg, mesh, Sl + Gl)
+        serve, _, _ = specs.build_serve_step(cfg, mesh, Sl + Gl, Bl)
+        place = lambda x: sharding.batch_sharding(  # noqa: E731
+            {"x": x}, mesh)["x"]
+
+    def run():
+        logits, caches = prefill(params, place(toks))
+        out, got = [ctx.whole(logits)], []
+        for i in range(Gl - 1):
+            tok = torch.argmax(out[-1], -1)[:, None]
+            got.append(tok)
+            logits, caches = serve(params, caches, place(tok), Sl + i)
+            out.append(ctx.whole(logits))
+        got.append(torch.argmax(out[-1], -1)[:, None])
+        return out, torch.cat(got, 1)
+    ctx.ROUTES.clear()
+    (logits, got), n, peak, wall = counted(run)
+    routes = dict(ctx.ROUTES)
+    ctx.set_mesh(None)
+    log(f"[mesh] {tag} lockstep ({Bl}, {Sl}) + {Gl - 1} decode steps: "
+        f"{wall:.3f} s, peak {peak:.2f} GiB, launches {n}, routes {routes}")
+    return logits, got, n, routes
+
+
+def mesh_zoo_engine(cfg, mesh):
+    """granite-moe's paged engine over ``MESH_ZOO_REQUESTS`` requests
+    with the ``serve`` phase's settings, plain and as
+    ``Engine(mesh=...)`` over the 1 x 1 mesh, on the seeded weights:
+    greedy tokens bit-equal, no K1-K4 launch, every MoE call on the TP
+    route."""
+    import torch
+    from repro_torch import api, serving
+    from repro_torch.distributed import ctx
+    from repro_torch.models import lm
+
+    sv = api.with_overrides(api.preset("lezo-opt13b"), {
+        **MAIN_OVERRIDES, **SERVE_OVERRIDES,
+        "serving.max_new_tokens": MESH_ZOO_NEW})
+    reqs = serve_requests(cfg.vocab, seed=sv.run.seed, n=MESH_ZOO_REQUESTS,
+                          shared=0)
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    toks, seen = {}, {}
+    for tag, m in (("plain", None), ("mesh 1 x 1", mesh)):
+        eng = serving.Engine(cfg, params, sv.serving, mesh=m, device="cuda")
+        ctx.ROUTES.clear()
+        (got, results, wall), n, peak, _ = counted(lambda: drain(eng, [
+            serving.Request(rid=rid, tokens=t, seed=SEED_BASE + rid)
+            for rid, t in reqs]))
+        seen[tag] = dict(ctx.ROUTES)
+        n_tok = sum(len(t) for t in got.values())
+        log(f"[mesh] {MESH_ZOO[1]} engine {tag}: {len(results)} requests, "
+            f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+            f"{eng.n_prefill_calls} prefill calls, {eng.n_decode_steps} "
+            f"decode steps; peak {peak:.2f} GiB; launches {n}; routes "
+            f"{seen[tag]}")
+        if (sorted(got) != list(range(MESH_ZOO_REQUESTS)) or eng.pool.in_use
+                or any(n.values())):
+            raise SystemExit(f"mesh: {MESH_ZOO[1]} engine {tag} results "
+                             f"{sorted(got)}, {eng.pool.in_use} pages left, "
+                             f"launches {n}")
+        toks[tag] = got
+        del eng
+    ctx.set_mesh(None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if toks["plain"] != toks["mesh 1 x 1"]:
+        raise SystemExit(f"mesh: {MESH_ZOO[1]}'s engine tokens over the "
+                         "1 x 1 mesh differ from the plain engine's")
+    if (seen["plain"] or set(seen["mesh 1 x 1"]) != {("tp", "moe")}
+            or not seen["mesh 1 x 1"][("tp", "moe")]):
+        raise SystemExit(f"mesh: {MESH_ZOO[1]} engine routes {seen}")
+    log(f"[mesh] {MESH_ZOO[1]} engine over the 1 x 1 mesh: greedy tokens "
+        f"of {MESH_ZOO_REQUESTS} requests bit-equal to the plain engine's")
+
+
+def mesh_zoo(mesh):
+    """The zoo's MoE and Mamba configs over the 1 x 1 mesh, where every
+    rule shards over a size-1 dim and the MoE experts and Mamba mixers
+    take the TP route (``ctx.tp_block``) with groups of one: deepseek-
+    v2-lite and granite-moe at full width and depth, jamba at full width
+    and the deepest depth in ``SSM_PERIODS`` whose mesh run and lockstep
+    fit; each bit-equal to the plain run from the same seed (then
+    granite's engine, jamba's lockstep)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import ctx
+
+    for arch in MESH_ZOO:
+        full = configs.get(arch)
+        depths = SSM_PERIODS if arch == SSM_JAMBA else (None,)
+        for periods in depths:
+            cfg = full if periods is None else dataclasses.replace(
+                full, stages=(dataclasses.replace(full.stages[0],
+                                                  repeat=periods),))
+            zcfg = mesh_zcfg(cfg)
+            batch = mesh_batch(cfg)
+            try:                  # the mesh run first: the one at risk
+                mesh_out, params = mesh_zoo_run(f"{arch} mesh", cfg, zcfg,
+                                                batch, mesh)
+                lock = (mesh_zoo_lockstep(f"{arch} mesh", cfg, params, mesh)
+                        if periods else None)
+            except torch.cuda.OutOfMemoryError as e:
+                if periods is None or periods == depths[-1]:
+                    raise
+                log(f"[mesh] {arch} at {periods} periods does not fit the "
+                    f"1 x 1 mesh run ({str(e).splitlines()[0]})")
+                ctx.set_mesh(None)
+                params = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            break
+        tag = arch if periods is None else f"{arch} at {periods} of 4 " \
+            "periods"
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain, params = mesh_zoo_run(f"{arch} plain", cfg, zcfg, batch, None)
+        mesh_zoo_compare(tag, cfg, zcfg, plain, mesh_out)
+        if periods:
+            want = mesh_zoo_lockstep(f"{arch} plain", cfg, params, None)
+            k2 = {"zo_axpy_2d": 0, "flash_attention": attention_layers(cfg),
+                  "pmatmul_stack": 0, "pmatmul": 0}
+            same = (len(lock[0]) == len(want[0]) and all(
+                torch.equal(a, b) for a, b in zip(lock[0], want[0]))
+                and torch.equal(lock[1], want[1]))
+            log(f"[mesh] {tag} lockstep over the 1 x 1 mesh vs plain: "
+                f"logits of {len(want[0])} steps and tokens bit-equal "
+                f"{same}; K2 launches {lock[2]} / {want[2]} (reckoned "
+                f"{k2}); routes {lock[3]} (reckoned "
+                f"{mesh_zoo_routes(cfg, MESH_ZOO_LOCKSTEP[2])})")
+            if not same:
+                raise SystemExit(f"mesh: {tag} lockstep over the 1 x 1 "
+                                 "mesh is not the plain one bit for bit")
+            if (lock[2] != k2 or want[2] != k2 or lock[3] != mesh_zoo_routes(
+                    cfg, MESH_ZOO_LOCKSTEP[2]) or want[3]):
+                raise SystemExit(f"mesh: {tag} lockstep launches or routes "
+                                 "off the reckoning")
+        del params, plain, mesh_out, lock
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == MESH_ZOO[1]:
+            mesh_zoo_engine(cfg, mesh)
+
+
 def mesh_grid():
     """``python -m repro_torch.launch dryrun`` for opt-13b at train_4k and
     decode_32k on the fake 16 x 16 mesh (no card): each cell's line."""
@@ -4084,6 +4369,12 @@ def phase_mesh(eps):
         mesh_engine(cfg, mesh, fresh())
         gc.collect()
         torch.cuda.empty_cache()
+
+        # 4. the zoo's MoE and Mamba configs over the same mesh
+        t_zoo = time.perf_counter()
+        mesh_zoo(mesh)
+        log(f"[mesh] zoo over the 1 x 1 mesh {time.perf_counter() - t_zoo:.1f}"
+            " s")
     finally:
         dist.destroy_process_group()
 
@@ -4125,9 +4416,9 @@ def phase_mesh(eps):
     if rec["useful_flop_ratio"] > MESH_USEFUL_GATE:
         raise SystemExit("mesh: useful_flop_ratio above 1.05")
 
-    # 4. K3/K4 per shard at full width
+    # 5. K3/K4 per shard at full width
     rows = mesh_shard_windows(cfg, eps)
-    # 5. the grid entry point
+    # 6. the grid entry point
     mesh_grid()
     log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
     return {"pmatmul_stack": [r for r in rows if r["matrix"][:4] != "head"],

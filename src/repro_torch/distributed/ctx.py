@@ -18,13 +18,31 @@ paged engine's flat scatter and page-table gather: :func:`paged_kv` and
 combine with one all-reduce whose every element has exactly one
 contributor (the others add -0.0, which leaves any value's bits as
 they are).
+
+Blocks DTensor cannot propagate through (the MoE dispatch, the
+recurrent scans) run per rank on the batch rows each rank holds, by one
+of two routes, each counted in :data:`ROUTES` by (route, block kind):
+
+  * :func:`tp_block`, the reference's layout: each weight's local shard
+    (the MoE experts on d_ff, Mamba on d_inner), the caches as placed,
+    the partial sums reduced over ``model`` inside the block (:class:`TP`).
+    The MoE and Mamba blocks take it whenever their leaves are sharded
+    on ``model`` (:func:`tp_sharded`), on a 1 x 1 mesh too;
+  * :func:`rowwise`, every weight gathered whole: mLSTM and sLSTM (their
+    block weights are replicated by the rules, so nothing is gathered),
+    and an MoE or Mamba block whose widths do not divide the ``model``
+    axis (the rules left its leaves replicated).
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.distributed as dist
 
 _MESH = None
+ROUTES = collections.Counter()   # (route, block kind) -> calls
+F32 = torch.float32
 
 
 def set_mesh(mesh):
@@ -137,41 +155,216 @@ def _whole(tree):
             for k, v in tree.items()}
 
 
-def rowwise(fn, x, params, cache=None):
+def _rows(t, mesh):
+    """Placements of ``t`` (B, ...) on its batch rows, as the reference's
+    ``constrain(x, "batch", ...)`` puts them: the batch axes shard dim 0
+    where B divides them, ``model`` replicates."""
+    from repro_torch.distributed.sharding import placements
+
+    return placements(spec_for(t.shape, ("batch",) + (None,) * (t.ndim - 1),
+                               mesh), mesh)
+
+
+def _wrap(t, mesh, pl, like):
+    """A local result ``t`` as the DTensor of ``like``'s global shape
+    and stride, placed by ``pl``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def rowwise(kind, fn, x, params, cache=None):
     """``fn(x_local, params_whole, cache_local) -> (out, new_state)`` per
     rank on the batch rows it holds: x and each cache leaf (this layer's
     (B, ...) views) batch-sharded as the reference's ``constrain(x,
     "batch", ...)`` puts them and whole on ``model``, every weight
-    gathered whole.  For blocks DTensor cannot propagate through (the MoE
-    dispatch, the recurrent scans): their work is row-local, so a rank
-    needs only its rows and the whole weights.  Returns (out, new_state)
-    as DTensors, ``new_state`` in each cache leaf's own placements (None
-    where ``fn`` returns None)."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.distributed.sharding import placements
-
+    gathered whole.  The route of the blocks whose leaves the rules
+    replicate: mLSTM and sLSTM (the gather is then a no-op), and an MoE
+    or Mamba block whose widths do not divide the ``model`` axis; the
+    MoE and Mamba blocks take :func:`tp_block` otherwise.  Their work is
+    row-local, so a rank needs only its rows and the whole weights.
+    ``kind`` names the block in :data:`ROUTES`.  Returns (out,
+    new_state) as DTensors, ``new_state`` in each cache leaf's own
+    placements (None where ``fn`` returns None)."""
     mesh = x.device_mesh
-
-    def rows(t):
-        return placements(spec_for(t.shape, ("batch",) + (None,) * (
-            t.ndim - 1), mesh), mesh)
-
-    xl = x.redistribute(mesh, rows(x)).to_local()
+    ROUTES["rowwise", kind] += 1
+    xl = x.redistribute(mesh, _rows(x, mesh)).to_local()
     cl = None if cache is None else {
-        k: t.redistribute(mesh, rows(t)).to_local() for k, t in
+        k: t.redistribute(mesh, _rows(t, mesh)).to_local() for k, t in
         cache.items()}
     out, new = fn(xl, _whole(params), cl)
-
-    def wrap(t, like):
-        pl = rows(like)
-        return DTensor.from_local(t, mesh, pl, run_check=False,
-                                  shape=like.shape, stride=like.stride())
-    out = wrap(out, x)
+    out = _wrap(out, mesh, _rows(x, mesh), x)
     if new is not None:
-        new = {k: wrap(t, cache[k]).redistribute(mesh, cache[k].placements)
+        new = {k: _wrap(t, mesh, _rows(cache[k], mesh), cache[k])
+               .redistribute(mesh, cache[k].placements)
                for k, t in new.items()}
     return out, new
+
+
+class TP:
+    """This rank's place on the ``model`` axis inside a block that
+    :func:`tp_block` runs per rank: ``n`` ranks in ``group`` (None when
+    the rank is alone on it), ``offsets`` the global offset of each
+    weight's local shard by its path in the block (``in_proj``,
+    ``norm/scale``).  :data:`LOCAL` (no mesh) makes each method the
+    identity, so a block's code is the single-device function."""
+
+    def __init__(self, group=None, n: int = 1, offsets=None):
+        self.group, self.n, self.offsets = group, n, dict(offsets or {})
+
+    def offset(self, name: str, dim: int) -> int:
+        """The global offset of the local shard of leaf ``name`` on
+        ``dim`` (0 without a mesh)."""
+        off = self.offsets.get(name)
+        return 0 if off is None else off[dim]
+
+    def sum(self, t):
+        """Partial sums ``t`` added over the ``model`` axis: one
+        all-reduce in float32 (``t`` widened first), the total returned
+        in ``t``'s dtype (one rounding, for a bf16 ``t``); ``t`` itself
+        on a rank alone on the axis."""
+        if self.n == 1:
+            return t
+        import torch.distributed._functional_collectives as fc
+        s = fc.wait_tensor(fc.all_reduce(t.to(F32), "sum", self.group))
+        return s.to(t.dtype)
+
+    def columns(self, t, parts: int, col0: int):
+        """Each of the ``parts`` equal sections of a (..., parts·W)
+        activation's last dim, on this rank its 1/n of each: ``t`` is the
+        local column block (..., parts·W/n) that starts at global column
+        ``col0`` (a weight sharded contiguously on its last dim, as
+        ``in_proj``'s (D, 2·Di)), so on 2 ranks rank 0 holds all of
+        section 0 and needs half of section 1 from rank 1.  One
+        all-to-all over ``model`` moves each element once, to the rank
+        whose channels it holds (an all-gather would move n times the
+        bytes); on one rank it is ``torch.split``."""
+        w = t.shape[-1] // parts
+        if self.n == 1:
+            return torch.split(t, w, dim=-1)
+        import torch.distributed._functional_collectives as fc
+        n = self.n
+        r = col0 // (parts * w)                     # this rank on the axis
+        g = [col0 // w + i for i in range(parts)]   # global chunk indices
+        dest = [c % n for c in g]                   # chunk c: piece c % n
+        order = sorted(range(parts), key=lambda i: dest[i])
+        cf = t.movedim(-1, 0)                       # channels first
+        send = torch.cat([cf[i * w:(i + 1) * w] for i in order])
+        src = [(p * n + r) // parts for p in range(parts)]
+        got = fc.wait_tensor(fc.all_to_all_single(
+            send, [w * src.count(s) for s in range(n)],
+            [w * dest.count(d) for d in range(n)], self.group))
+        return tuple(got[p * w:(p + 1) * w].movedim(0, -1)
+                     for p in range(parts))
+
+
+LOCAL = TP()
+
+
+def _model_dim(mesh):
+    names = tuple(mesh.mesh_dim_names)
+    return names.index("model") if "model" in names else None
+
+
+def tp_sharded(params, cache=None) -> bool:
+    """True when every leaf of a block's ``params`` that the rules put on
+    ``model`` (``sharding._COL``/``_ROW``), and every leaf of its
+    ``cache``, is a DTensor sharded on that axis: the block can run per
+    rank on its shards (:func:`tp_block`).  False where a width did not
+    divide the axis (the rules replicated the leaf) or the mesh has no
+    ``model`` axis."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed.sharding import _COL, _ROW
+
+    leaves = [t for k, t in params.items() if k in _COL or k in _ROW]
+    for t in leaves + list((cache or {}).values()):
+        mi = _model_dim(t.device_mesh)
+        if mi is None or not isinstance(t.placements[mi], Shard):
+            return False
+    return True
+
+
+def tp_block(kind, fn, x, params, cache=None):
+    """``fn(x_local, params_local, cache_local, tp) -> (out, new_state)``
+    per rank, the reference's tensor-parallel layout inside one block:
+    x on this rank's batch rows and whole on ``model`` (as
+    :func:`rowwise` puts it); each weight's **local** shard
+    (``to_local()``, never gathered), with its global offset in
+    ``tp.offsets``; each cache leaf (this layer's (B, ...) views) in the
+    placements ``cache_pspec`` gave it, not redistributed; ``tp``
+    (:class:`TP`) the ``model`` group, whose collectives ``fn`` calls
+    where the reference's partitioner reduces.  Those are, by block:
+
+      * MoE: ``we_d``'s partial ``o`` (B_rows, E, C, D) and the shared
+        experts' ``ws_d`` partial (B_rows, S, D), each one float32
+        all-reduce (the reference's ``preferred_element_type=F32``);
+      * Mamba: the (B_rows, S, 2·Di/n) ``in_proj`` output re-split by
+        one all-to-all (:meth:`TP.columns`), ``x_proj``'s partial
+        (B_rows, S, R + 2·St) and ``out_proj``'s (B_rows, S, D) each one
+        all-reduce summed in float32 and rounded once to the model dtype
+        (the reference's dots emit the model dtype).
+
+    ``out`` comes back all-reduced, so it is returned on x's batch rows,
+    replicated on ``model``; ``new_state`` in each cache leaf's own
+    placements.  ``kind`` names the block in :data:`ROUTES`."""
+    from repro_torch.distributed.sharding import local_window
+
+    mesh = x.device_mesh
+    ROUTES["tp", kind] += 1
+    mi = _model_dim(mesh)
+    n = 1 if mi is None else mesh.size(mi)
+    rows = _rows(x, mesh)
+    offsets = {}
+
+    def local(path, t):
+        if isinstance(t, dict):
+            return {k: local(f"{path}{k}/" if isinstance(v, dict)
+                             else f"{path}{k}", v) for k, v in t.items()}
+        if not is_dtensor(t):
+            return t
+        offsets[path] = tuple(local_window(t.shape, mesh, t.placements)[1])
+        return t.to_local()
+
+    pl = local("", params)
+    cl = None if cache is None else {k: t.to_local()
+                                     for k, t in cache.items()}
+    tp = TP(mesh.get_group(mi) if n > 1 else None, n, offsets)
+    out, new = fn(x.redistribute(mesh, rows).to_local(), pl, cl, tp)
+    out = _wrap(out, mesh, rows, x)
+    if new is not None:
+        new = {k: _wrap(t, mesh, cache[k].placements, cache[k])
+               for k, t in new.items()}
+    return out, new
+
+
+def write_seq(leaf, start: int, new):
+    """``leaf[:, start:start + S] = new``, in place, for a lockstep cache
+    leaf (B, Smax, ...) and ``new`` (B, S, ...).  On a DTensor leaf (its
+    sequence dim on ``model`` by ``cache_pspec``) each rank writes the
+    positions its shard holds, ``new`` brought to the leaf's batch rows
+    and whole on the sequence first: DTensor's own slice assignment on
+    a sharded dim writes into a gathered temporary and drops it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import local_window
+
+    S = new.shape[1]
+    if not is_dtensor(leaf):
+        leaf[:, start:start + S] = new
+        return
+    mesh, pl = leaf.device_mesh, leaf.placements
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new = new.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                  for p in pl]).to_local()
+    n, off = local_window(leaf.shape, mesh, pl)
+    lo, hi = max(start, off[1]), min(start + S, off[1] + n[1])
+    if lo < hi:
+        leaf.to_local()[:, lo - off[1]:hi - off[1]] = new[:, lo - start:
+                                                         hi - start]
 
 
 def whole(x):

@@ -20,7 +20,9 @@ Decode and paged attention are plain PyTorch, as the reference's are
 
 Under a registered mesh (``distributed/ctx.py``) train and prefill
 attention pin q/k/v where the reference does: KV heads on ``model`` when
-they divide it, else query stripes.  The paged mode writes and gathers
+they divide it, else query stripes.  The lockstep caches' sequence dim
+lies on ``model``: prefill and decode write each position on the rank
+whose shard holds it (``ctx.write_seq``).  The paged mode writes and gathers
 a page-sharded arena per rank (``ctx.paged_kv``) and attends over the
 whole K/V on every rank, the dense single-device function.
 """
@@ -198,9 +200,59 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     path, every lane at the same depth) or a (B,) tensor (per-lane
     depths).
     """
+    if ctx.is_dtensor(k_cache):
+        return _decode_sharded(q, k_cache, v_cache, cur_len)
     cur = torch.as_tensor(cur_len, device=q.device).reshape(-1, 1, 1)
     slots = torch.arange(k_cache.shape[1], device=q.device)
     return _attend(q, k_cache, v_cache, slots < cur)
+
+
+def _decode_sharded(q, k_cache, v_cache, cur_len):
+    """:func:`decode_attention` per rank over a placed lockstep cache
+    (batch rows on the batch axes, the sequence on ``model``): q brought
+    to the cache's rows with every head; scores over this rank's window
+    of positions, all-gathered over the axes that shard the sequence
+    (the flash-decode split the reference's partitioner derives), one
+    softmax over all of them, P·V over the window, and the partial
+    outputs summed in float32 over those axes.  With the sequence whole
+    on every rank it is :func:`_attend` on the local tensors, the plain
+    function bit for bit.  Returns (B, 1, KV, G, dh) on the cache's
+    rows."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import local_window
+
+    mesh, pl = k_cache.device_mesh, k_cache.placements
+    qpl = [p if p == Shard(0) else Replicate() for p in pl]
+    if not ctx.is_dtensor(q):
+        q = DTensor.from_local(q, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    shape = q.shape
+    ql = q.redistribute(mesh, qpl).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    n, off = local_window(k_cache.shape, mesh, pl)
+    cur = torch.as_tensor(cur_len, device=ql.device).reshape(-1, 1, 1)
+    valid = torch.arange(off[1], off[1] + n[1], device=ql.device) < cur
+    groups = [mesh.get_group(i) for i, p in enumerate(pl)
+              if p == Shard(1) and mesh.size(i) > 1]
+    if not groups:
+        out = _attend(ql, kl, vl, valid)
+    else:
+        s = torch.einsum("bqkgd,bskd->bkgqs", ql.to(F32),
+                         kl.to(F32)) * (ql.shape[-1] ** -0.5)
+        s = torch.where(valid[:, None, None], s,
+                        torch.tensor(NEG_INF, dtype=F32, device=ql.device))
+        for g in groups:                   # mesh order: major to minor
+            s = fc.wait_tensor(fc.all_gather_tensor(s, s.ndim - 1, g))
+        p = torch.softmax(s, dim=-1)[..., off[1]:off[1] + n[1]]
+        out = torch.einsum("bkgqs,bskd->bqkgd", p.to(ql.dtype).to(F32),
+                           vl.to(F32))
+        for g in groups:
+            out = fc.wait_tensor(fc.all_reduce(out, "sum", g))
+        out = out.to(ql.dtype)
+    return DTensor.from_local(out, mesh, qpl, run_check=False, shape=shape,
+                              stride=q.stride())
 
 
 def paged_attention(q, k, v, q_positions):
@@ -298,13 +350,17 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
         page = torch.gather(pages, 1, torch.div(positions, psz,
                                                 rounding_mode="floor"))
         flat = (page * psz + positions % psz).reshape(-1)
-        # (B, max_pg*psz, KV, dh), per rank on a page-sharded arena
-        kg = ctx.paged_kv(cache["k"], pages, flat, k.reshape(B * S, KV, dh))
-        vg = ctx.paged_kv(cache["v"], pages, flat, v.reshape(B * S, KV, dh))
+        # (B, max_pg*psz, KV, dh), per rank on a page-sharded arena; the
+        # new K/V whole first (x may come batch-sharded from an MoE or
+        # Mamba block, and DTensor cannot fold a sharded B into B·S)
+        kg = ctx.paged_kv(cache["k"], pages, flat,
+                          ctx.whole(k).reshape(B * S, KV, dh))
+        vg = ctx.paged_kv(cache["v"], pages, flat,
+                          ctx.whole(v).reshape(B * S, KV, dh))
         o = paged_attention(ctx.whole(q), kg, vg, positions)
     elif mode == "decode":
-        cache["k"][:, pos:pos + 1] = k
-        cache["v"][:, pos:pos + 1] = v
+        ctx.write_seq(cache["k"], pos, k)
+        ctx.write_seq(cache["v"], pos, v)
         o = decode_attention(q, cache["k"], cache["v"], pos + 1)
     else:
         k_offset = 0
@@ -317,8 +373,8 @@ def attn_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, pc=None,
                             k_offset=k_offset, q_chunk=cfg.attn_q_chunk,
                             k_chunk=cfg.attn_k_chunk)
         if mode == "prefill":
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            ctx.write_seq(cache["k"], 0, k)
+            ctx.write_seq(cache["v"], 0, v)
     return mm(o.reshape(B, S, H * dh), p["wo"], "wo").to(x.dtype)
 
 
@@ -359,8 +415,8 @@ def mla_fwd(cfg, p, x, *, mode="train", cache=None, pos=0):
     wuv = p["wuv"].reshape(lora, H, dn)
 
     if mode == "decode":
-        cache["ckv"][:, pos:pos + S] = ckv
-        cache["kr"][:, pos:pos + S] = kr[:, :, 0]
+        ctx.write_seq(cache["ckv"], pos, ckv)
+        ctx.write_seq(cache["kr"], pos, kr[:, :, 0])
         ckv_c, kr_c = cache["ckv"].to(F32), cache["kr"].to(F32)
         q_lat = torch.einsum("bqhd,lhd->bqhl", qn.to(F32), wuk.to(F32))
         s = torch.einsum("bqhl,bsl->bhqs", q_lat, ckv_c)
@@ -383,8 +439,8 @@ def mla_fwd(cfg, p, x, *, mode="train", cache=None, pos=0):
                             k_chunk=cfg.attn_k_chunk)
         o = o.reshape(B, S, H, dn + dr)[..., :dn]
         if mode == "prefill":
-            cache["ckv"][:, :S] = ckv
-            cache["kr"][:, :S] = kr[:, :, 0]
+            ctx.write_seq(cache["ckv"], 0, ckv)
+            ctx.write_seq(cache["kr"], 0, kr[:, :, 0])
     return (o.reshape(B, S, H * dn) @ p["wo"]).to(x.dtype)
 
 

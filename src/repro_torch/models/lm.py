@@ -315,19 +315,25 @@ def count_active_params(cfg: ModelConfig, params) -> int:
 def _recurrent(cfg, b, p, x, mode="train", cache=None, pos=0, pages=None):
     """A recurrent mixer's output; in prefill and decode its new state
     is copied into ``cache`` (this layer's views) in place.  On a mesh
-    the scan runs per rank over its batch rows with the block's weights
-    gathered whole (``distributed/ctx.py::rowwise``)."""
+    the block runs per rank over its batch rows: Mamba on its d_inner
+    channels where the rules sharded them (``ctx.tp_block``, the
+    reference's layout, caches as placed); mLSTM and sLSTM, whose block
+    weights the rules replicate, and a Mamba block whose d_inner does
+    not divide the ``model`` axis on whole weights (``ctx.rowwise``)."""
     if mode == "paged":
         raise NotImplementedError(
             f"paged serving covers attn mixers only; got {b.kind!r} (use "
             "the lockstep serve path)")
     fwd = {"mamba": ssm.mamba_fwd, "mlstm": ssm.mlstm_fwd,
            "slstm": ssm.slstm_fwd}[b.kind]
-    if is_dtensor(x):        # on a mesh: per rank, on its batch rows
-        out, new = ctx.rowwise(lambda xl, pl, cl: fwd(
-            cfg, pl, xl, mode=mode, cache=cl, pos=pos), x, p, cache)
-    else:
+    if not is_dtensor(x):
         out, new = fwd(cfg, p, x, mode=mode, cache=cache, pos=pos)
+    elif b.kind == "mamba" and ctx.tp_sharded(p, cache):
+        out, new = ctx.tp_block("mamba", lambda xl, pl, cl, tp: fwd(
+            cfg, pl, xl, mode=mode, cache=cl, pos=pos, tp=tp), x, p, cache)
+    else:
+        out, new = ctx.rowwise(b.kind, lambda xl, pl, cl: fwd(
+            cfg, pl, xl, mode=mode, cache=cl, pos=pos), x, p, cache)
     if new is not None:
         for name, t in new.items():
             cache[name].copy_(t)

@@ -27,7 +27,16 @@ Every op is plain PyTorch: the reference computes routing, dispatch and
 the expert products outside any Pallas kernel.  On a mesh the block
 runs per rank over its batch rows (the reference's ``ctx.constrain``
 hints keep the dispatch row-local on the batch axes; the port makes that
-explicit), with the expert weights gathered whole.
+explicit).  Where the rules shard the experts on d_ff (every width that
+divides the ``model`` axis) it is the reference's tensor parallelism
+(:func:`_moe_tp`): every rank of a ``model`` group computes the same
+routing and dispatch on the same rows, the expert products run on its
+local F slice of ``we_g``/``we_u``/``we_d`` (and of the shared experts'
+``ws_*``), and one float32 all-reduce of the partial expert outputs
+(one more for the shared experts') precedes the combine.  Where the
+widths do not divide the axis the rules replicate the experts and the
+block takes ``ctx.rowwise`` (:func:`_moe_rowwise`), which gathers
+nothing then.
 """
 from __future__ import annotations
 
@@ -110,40 +119,74 @@ def _rows(t, idx):
 
 def moe_fwd(cfg, p, x):
     """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar); on
-    a mesh per rank over its batch rows (:func:`_moe_rowwise`)."""
-    if is_dtensor(x):
-        return _moe_rowwise(cfg, p, x)
-    return _moe_local(cfg, p, x)
+    a mesh per rank over its batch rows, tensor-parallel on d_ff
+    (:func:`_moe_tp`) where the rules sharded the experts, else with the
+    (replicated) experts whole (:func:`_moe_rowwise`)."""
+    if not is_dtensor(x):
+        return _moe_local(cfg, p, x)
+    if ctx.tp_sharded(p):
+        return _moe_tp(cfg, p, x)
+    return _moe_rowwise(cfg, p, x)
+
+
+def _mesh_aux(cfg, y, means):
+    """The load-balance term over the global batch: the per-rank batch
+    means ``me`` and ``ce`` averaged over the batch axes that shard
+    ``y``'s rows (they hold equal row counts), as a replicated DTensor."""
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = y.device_mesh
+    me, ce = means["me"], means["ce"]
+    for i, pl in enumerate(y.placements):
+        if pl == Shard(0) and mesh.size(i) > 1:
+            me = fc.wait_tensor(fc.all_reduce(me, "avg", mesh.get_group(i)))
+            ce = fc.wait_tensor(fc.all_reduce(ce, "avg", mesh.get_group(i)))
+    aux = cfg.n_experts * torch.sum(me * ce)
+    return DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _moe_tp(cfg, p, x):
+    """The block per rank (``ctx.tp_block``), the reference's layout:
+    router, top-k, sort, capacity and dispatch row-local and the same on
+    every rank of a ``model`` group; ``we_g``/``we_u`` on the local F
+    slice, ``a = silu(g)·u`` in x's dtype, ``we_d`` over the local F
+    giving partial ``o`` in float32, one all-reduce of it over
+    ``model``, then the combine in its fixed order; the shared experts
+    column- then row-parallel, one float32 all-reduce of their partial
+    sum.  ``aux`` as :func:`_moe_rowwise` computes it."""
+    means = {}
+
+    def fn(xl, pl, _, tp):
+        y, _aux = _moe_local(cfg, pl, xl, means=means, tp=tp)
+        return y, None
+    y, _ = ctx.tp_block("moe", fn, x, p)
+    return y, _mesh_aux(cfg, y, means)
 
 
 def _moe_rowwise(cfg, p, x):
     """The block per rank, dispatch row-local as the reference keeps it,
-    the expert weights gathered whole; ``aux``'s batch means are taken
-    over the global batch (the per-rank terms averaged over the batch
-    axes, which hold equal row counts)."""
-    import torch.distributed._functional_collectives as fc
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = x.device_mesh
-    aux_parts = {}
+    the expert weights gathered whole (``ctx.rowwise``): the route where
+    the experts' widths do not divide the ``model`` axis, so the rules
+    replicated them and nothing is gathered.  ``aux``'s batch means are
+    taken over the global batch (the per-rank terms averaged over the
+    batch axes, which hold equal row counts)."""
+    means = {}
 
     def fn(xl, pl, _):
-        y, aux = _moe_local(cfg, pl, xl, means=aux_parts)
+        y, _aux = _moe_local(cfg, pl, xl, means=means)
         return y, None
-    y, _ = ctx.rowwise(fn, x, p)
-    me, ce = aux_parts["me"], aux_parts["ce"]
-    for i, pl in enumerate(y.placements):
-        if pl == Shard(0):
-            me = fc.wait_tensor(fc.all_reduce(me, "avg", mesh.get_group(i)))
-            ce = fc.wait_tensor(fc.all_reduce(ce, "avg", mesh.get_group(i)))
-    aux = cfg.n_experts * torch.sum(me * ce)
-    return y, DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
+    y, _ = ctx.rowwise("moe", fn, x, p)
+    return y, _mesh_aux(cfg, y, means)
 
 
-def _moe_local(cfg, p, x, means=None):
+def _moe_local(cfg, p, x, means=None, tp=None):
     """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar);
     ``means`` (a dict) receives aux's two batch means, ``me`` and ``ce``.
+    ``tp`` (``ctx.TP``; None off a mesh) is this rank's ``model`` group
+    when the expert leaves are its d_ff slices: the partial expert
+    outputs are summed over it before the combine.
 
     ``aux`` is the Switch-style load-balance term E · Σ_e mean-prob_e ·
     mean-assignment-share_e.  The expert products run in the model
@@ -154,6 +197,7 @@ def _moe_local(cfg, p, x, means=None):
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
+    tp = tp or ctx.LOCAL
     h = layers.apply_norm(cfg, p["norm"], x)
 
     logits = h.to(F32) @ p["router"]
@@ -185,7 +229,7 @@ def _moe_local(cfg, p, x, means=None):
     g = torch.einsum("becd,edf->becf", eb, p["we_g"])
     u = torch.einsum("becd,edf->becf", eb, p["we_u"])
     a = (torch.nn.functional.silu(g.to(F32)) * u.to(F32)).to(x.dtype)
-    o = torch.einsum("becf,efd->becd", a, p["we_d"]).to(F32)
+    o = tp.sum(torch.einsum("becf,efd->becd", a, p["we_d"]).to(F32))
     o = o.reshape(B, E * C, D)
 
     # ---- combine: each token's k terms in sorted order -----------------
@@ -203,5 +247,5 @@ def _moe_local(cfg, p, x, means=None):
     if cfg.n_shared_experts:
         sg = torch.nn.functional.silu((h @ p["ws_g"]).to(F32))
         su = (h @ p["ws_u"]).to(F32)
-        y = y + ((sg * su).to(x.dtype) @ p["ws_d"]).to(F32)
+        y = y + tp.sum(((sg * su).to(x.dtype) @ p["ws_d"]).to(F32))
     return y.to(x.dtype), aux

@@ -27,12 +27,20 @@ threshold and parts from it.
 
 Every op is plain PyTorch, as the reference's are ``einsum``s and scans
 outside any Pallas kernel.
+
+On a mesh (``lm.py::_recurrent``) Mamba runs per rank on its d_inner
+channels, the reference's layout (``ctx.tp_block``): ``in_proj``
+column-parallel, the conv, ``dt``, ``A_log`` and ``Dskip`` leaves and
+the ``conv``/``ssm`` caches local on their channels, ``x_proj`` and
+``out_proj`` row-parallel; mLSTM and sLSTM, whose block weights the
+rules replicate, run on whole weights (``ctx.rowwise``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers
 
 F32 = torch.float32
@@ -155,22 +163,34 @@ def _mamba_scan(dt, A, Bp, xf, Cp, h0):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_fwd(cfg, p, x, *, mode="train", cache=None, pos=0):
+def mamba_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, tp=None):
     """Mamba block: norm, ``in_proj`` into (x, z), the causal conv and
     float32 ``silu`` (back to the model dtype), the selective
     projections, the chunked scan (the one-step recurrence in decode),
     the ``Dskip`` term and the ``silu(z)`` gate, ``out_proj``.  ``cache``
     {"conv" (B, K-1, Di), "ssm" (B, Di, St) f32} is the state the
-    sequence starts from (prefill and decode)."""
+    sequence starts from (prefill and decode).
+
+    ``tp`` (``ctx.TP``; None off a mesh): the leaves and caches are this
+    rank's d_inner channels (Di is then the local width).  ``in_proj``'s
+    local columns are re-split into this rank's channels of x and z by
+    one all-to-all (``TP.columns``: the weight keeps the reference's
+    contiguous placement, which its perturbation runs on); ``x_proj``'s
+    (B, S, R + 2·St) partial sums are all-reduced before the split into
+    ``dt_in``, ``B`` and ``C``, and ``out_proj``'s (B, S, D) after the
+    gate, each summed in float32 and rounded once to the model dtype,
+    the dtype of the reference's ``xc @ x_proj`` and ``y @ out_proj``."""
     B, S, D = x.shape
-    Di, St, R = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_dt_rank
+    St, R = cfg.mamba_d_state, cfg.mamba_dt_rank
+    Di = p["conv_w"].shape[-1]                  # this rank's channels
+    tp = tp or ctx.LOCAL
     h = layers.apply_norm(cfg, p["norm"], x)
-    xin, z = torch.split(h @ p["in_proj"], Di, dim=-1)
+    xin, z = tp.columns(h @ p["in_proj"], 2, tp.offset("in_proj", -1))
     conv_cache = cache["conv"] if cache is not None else None
     xc, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_cache)
     xc = F.silu(xc.to(F32)).to(x.dtype)
 
-    proj = (xc @ p["x_proj"]).to(F32)
+    proj = tp.sum(xc @ p["x_proj"]).to(F32)
     dt_in, Bp, Cp = torch.split(proj, [R, St, St], dim=-1)
     dt = softplus(dt_in @ p["dt_w"].to(F32) + p["dt_b"])        # (B,S,Di)
     A = -torch.exp(p["A_log"])                                   # (Di,St)
@@ -188,7 +208,7 @@ def mamba_fwd(cfg, p, x, *, mode="train", cache=None, pos=0):
 
     y = y + p["Dskip"] * xf
     y = y * F.silu(z.to(F32))
-    out = (y.to(x.dtype) @ p["out_proj"]).to(x.dtype)
+    out = tp.sum((y.to(x.dtype) @ p["out_proj"]).to(x.dtype))
     new_cache = None
     if mode in ("decode", "prefill"):
         new_cache = {"conv": new_conv, "ssm": h_final}
