@@ -44,11 +44,13 @@ when it fails:
              versions).  Also read, not gated: the same gaps with K2's
              plain version in the model, on these weights and on weights
              trained with it.
-6. profile — one more main-path step under ``torch.profiler``: device
-             time by kernel, each port kernel's device time per launch,
-             and the device's idle share of the step.
+6. profile — two more main-path steps in one profiled window
+             (``measure_window``: ``torch.profiler`` between edge kernels,
+             a marker kernel a step, the records refused unless whole):
+             device time by kernel, each port kernel's device time per
+             launch, and the device's idle share of a step.
 7. trace   — the main path's steady state on the weights of ``train``:
-             2 warm-up + 20 steps with telemetry off, then as many with
+             2 warm-up + 10 steps with telemetry off, then as many with
              it on (``fence=false``; ring and ``trace.jsonl`` in a
              temporary run directory), each through ``api.run``: median,
              min and max of ``step_seconds`` and of the ``train/step``
@@ -57,7 +59,7 @@ when it fails:
              imply (probes, sweeps, selections, the active-layer gauge,
              and W tiles and z tiles from K3/K4's grid); the on/off
              median ratio within 0.80-1.25; the device's idle share over
-             20 steady steps (``torch.profiler``, kernel time); and 4
+             10 steady steps (``measure_window``, kernel time); and 4
              steps with ``fence=true``: the median of each stage span.
 8. replay  — ``launch replay`` of that telemetry-on run on the card, from
              the weights it started from: every recorded scalar of every
@@ -73,20 +75,35 @@ when it fails:
              two_point, with the main path's overrides.  Step seconds,
              peak memory and launches by kernel; the launches must equal
              what ``costs.step_counts`` and K3's probe grouping imply.
-10. momentum — ``zo_momentum`` on the same weights, materialized, K1
+10. mezo   — MeZO (``mezo-opt13b``, sparsity 0) beside LeZO
+             (``lezo-opt13b``) on the same weights, each from them and the
+             same seed, under the virtual paired forward (K3 active on 40
+             layers against 10) and under the materialized probes with
+             ``backend=pallas`` (K1's perturb, perturb and restore+update
+             sweeps over 40 rows against 10), 1 + 3 steps each with
+             telemetry on: finite losses, launches as reckoned, the
+             ``obs.trace`` probe, selection and axpy counters, K3/K4's
+             tile counters and the active-layer gauge as reckoned, and
+             MeZO's first (l+, l-) against its own backend's probes (the
+             virtual pair, or the materialized probes) on the same
+             weights, batch and seed, the virtual l- against theta - eps
+             z (``check``'s gate).  Read: the gap to the other backend's
+             probes, step seconds, device time, peak, and MeZO / LeZO
+             under each backend.
+11. momentum — ``zo_momentum`` on the same weights, materialized, K1
              sweeps (probe, restore and the K history sweeps), 3 steps.
-11. tasks   — the task registry on fresh seeded weights: the main path on
+12. tasks   — the task registry on fresh seeded weights: the main path on
              ``sst2`` (4 steps, one evaluation of 64 examples), then
              zero-shot ``api.evaluate`` on ``copa`` and ``squad_copy``;
              launches against ``costs.step_counts`` plus the evaluation
              forwards; each scorer with K2 against K2's plain version
              (within 8 bf16 steps), SDPA in K2's place beside it; the
              same read, not gated, on the weights earlier phases trained.
-12. peft   — ZO over a LoRA tree (``lezo-opt13b-lora``) and a prefix tree
+13. peft   — ZO over a LoRA tree (``lezo-opt13b-lora``) and a prefix tree
              (``runtime.peft=prefix``) on the weights of ``tasks``,
              materialized,
              3 steps each: step seconds, peak memory, K1/K2 launches.
-13. serve  — the serving path at OPT-13B full width and depth, on the
+14. serve  — the serving path at OPT-13B full width and depth, on the
              weights of the earlier phases (or from a seed): lockstep
              ``launch.serve.generate`` at batch 4, prompt 1024, 32 new
              tokens (K2 launches must equal the 40 layers of the prefill;
@@ -108,7 +125,7 @@ when it fails:
              gated); the plain serving operations' times; a
              ``torch.profiler`` profile of one steady decode step and the
              idle share over 10.
-14. zoo    — the dense model zoo, once this process holds no OPT-13B
+15. zoo    — the dense model zoo, once this process holds no OPT-13B
              weights.  Each kernel against its plain version at
              Qwen3-14B's shapes (the ``zoo_shapes`` rows: K2 at G = 5, 2
              and 7 with 8 KV heads, SDPA with ``enable_gqa`` beside; K3
@@ -120,7 +137,7 @@ when it fails:
              4 steps (launches as ``expected_launches`` reckons: K3 7 a
              layer, K4 2, K2 40 a step, K1 one a leaf; every K3/K4 launch
              by TMA), the virtual pair against the materialized probes
-             with ``check``'s gates, 20 steady steps as ``trace`` times
+             with ``check``'s gates, 10 steady steps as ``trace`` times
              them (telemetry off) with the idle share, a profiled step;
              serving it: lockstep ``generate`` at (4, 1024) + 32 (K2 40
              launches at (4, 1024, 8, 5, 128), held against its plain
@@ -129,12 +146,17 @@ when it fails:
              find the prefix registered) with sharing off and
              ``prefix_cache`` bit-equal, pages shared, 2
              requests against ``generate`` at batch 1 (``serve``'s gate).
-             Then the other five dense configs at full width cut to 2
-             layers (2 steps each; musicgen-large and internvl2-2b on
-             stub embeddings), and deepseek-coder-33b at full width and
-             depth (2 steps, peak memory): finite losses and launches as
-             reckoned.
-15. moe    — the zoo's MoE and MLA configs, once no earlier weights are
+             Then K2, K3 and K4 against their plain versions at the
+             shapes of codeqwen1.5-7b, internlm2-1.8b, musicgen-large and
+             internvl2-2b, and each of those four at its published depth
+             and full width through ``api.run`` (2 + 6 steps, LeZO's
+             n_drop from the preset's sparsity; musicgen-large and
+             internvl2-2b on stub embeddings): finite losses, launches
+             as reckoned, K3/K4 routes, every step's active layers; the
+             step seconds, device time and idle share over 3 more steps,
+             peak memory.  Last deepseek-coder-33b at full width and
+             depth (2 steps, peak memory).
+16. moe    — the zoo's MoE and MLA configs, once no earlier weights are
              held.  K2 at MLA's dh = 192 (q (16, 63, 16, 1, 192), v
              zero-padded from 128: pad columns exact zeros) and at
              granite-moe's (16, 63, 8, 2, 64), SDPA beside; K1 on a
@@ -145,7 +167,7 @@ when it fails:
              twice from the seed (launches as ``expected_launches``
              reckons: K1 a leaf a sweep, K2 a layer a forward; the two
              runs' losses, projected gradients and parameter digests
-             bit-equal), 2 + 10 steady steps, the idle share over 10, a
+             bit-equal), 2 + 5 steady steps, the idle share over 5, a
              profiled step with device time by op.  deepseek serves
              through the lockstep ``generate`` (4, 1024) + 32 (the
              engine must refuse MLA; K2 27 launches at dh = 192, held
@@ -157,7 +179,7 @@ when it fails:
              gap to the lockstep read, not gated) and dropless at 4.0
              (no drop; ``prefix_cache`` bit-equal with pages shared;
              ``serve``'s engine-against-lockstep gate).
-16. ssm    — the zoo's recurrent configs, once no earlier weights are
+17. ssm    — the zoo's recurrent configs, once no earlier weights are
              held.  K2 at jamba's GQA (16, 63, 8, 4, 128) and lockstep
              prefill (4, 1024, 8, 4, 128), SDPA beside; K1 on a layer's
              row of jamba's ``we_g`` (939.5 M elements) and on xlstm's
@@ -173,13 +195,13 @@ when it fails:
              ``lezo-opt13b`` materialized, as ``moe`` runs its two: 4
              steps twice from the seed bit-equal, launches as reckoned
              (K1 a leaf a sweep; K2 an attention layer a forward),
-             2 + 10 steady steps, the idle share, a profiled step with
+             2 + 5 steady steps, the idle share, a profiled step with
              the Mamba scan, the mLSTM chunk and the sLSTM block by
              device time; jamba's dropped MoE assignments at capacity
              factor 1.25; each served through the lockstep ``generate``
              (4, 1024) + 32 twice (equal tokens; the engine must refuse
              them) with a decode step timed and profiled.
-17. modes  — the reference's other optimizer modes on the zoo's config
+18. modes  — the reference's other optimizer modes on the zoo's config
              families, once no earlier weights are held.  First each
              kernel against its plain version at the shapes only these
              runs give it (the ``modes_shapes`` rows): K3 on Qwen3-14B's
@@ -204,15 +226,15 @@ when it fails:
              The K2 rows also hold the kernel's row statistics and the
              gradients through it.  jamba's FO is reckoned and
              stays on the CPU: one period holds more than the card.
-18. fo     — K2's backward against autograd through its plain version at
+19. fo     — K2's backward against autograd through its plain version at
              the main shape; then first-order training with float32
              master weights: ``fo-opt13b`` with SGD at 20 and the
              preset's AdamW at 10 of 40 layers (what 80 GB holds), peak
              memory and state sizes.
-19. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
+20. resume — on the ``bench`` variant in bf16: 4 uninterrupted steps
              against 2 steps, a checkpoint and a resumed run of 2 more;
              the parameters must match bit for bit.
-20. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
+21. swarm  — the seed-synchronized swarm (``repro_torch.swarm``), once
              this process holds no 13B weights.  First K1-K4 against
              their plain versions at the shapes one worker's loss shard
              gives them (the ``swarm_shapes`` rows of the kernels line).
@@ -238,7 +260,7 @@ when it fails:
              the crash.  Wall times, steps a second, steady bytes a step
              beside 4·|θ| for an FO gradient exchange, each worker's
              peak memory.
-21. mesh   — the mesh layer at OPT-13B full width and depth (B 16,
+22. mesh   — the mesh layer at OPT-13B full width and depth (B 16,
              S 63), once no earlier weights are held.  ``make_zo_step``
              (the dry run's ``optimized`` config with the sweeps on K1,
              ``backend=pallas``; n_drop 30) 4 steps plain, then the same
@@ -246,7 +268,7 @@ when it fails:
              (``launch/specs.py::build_train_step``, leaves placed by
              ``distributed/sharding.py``): losses, projected gradients and
              every leaf's bit sum equal, K1/K2 launches as reckoned (K1 a
-             leaf a sweep, K2 a layer a forward).  2 + 10 steady mesh
+             leaf a sweep, K2 a layer a forward).  2 + 5 steady mesh
              steps: median wall against the plain step's (DTensor's host
              cost), device time and idle share (``torch.profiler``), peak
              memory.  Then the paged engine with the ``serve`` phase's
@@ -285,9 +307,14 @@ when it fails:
              device time and kernels, and the peak, side by side.  Then
              jamba's lockstep prefill (4, 128) and 3 decode steps over
              placed caches against the plain lockstep (logits and tokens
-             bit-equal, K2 a prefill's attention layers), and granite's
+             bit-equal, K2 a prefill's attention layers, each MoE and
+             Mamba layer on the TP route once a forward), and granite's
              paged engine over 4 requests as ``Engine(mesh=...)`` against
-             the plain engine (tokens bit-equal, no K1-K4 launch).
+             the plain engine (tokens bit-equal, no K1-K4 launch);
+             deepseek-v2-lite's lockstep likewise over its latent cache
+             (``ckv``/``kr`` on the sequence, K2 27 launches at dh =
+             192), each lockstep's wall, device time and peak beside the
+             plain one's.
 
 For a quick kernel check: ``--phases build,rng,parity``.
 
@@ -835,7 +862,7 @@ def phase_train():
     return spec, cfg, hist["final_params"], launches
 
 
-def probe_gap(spec, cfg, params, plant=1.0):
+def probe_gap(spec, cfg, params, plant=1.0, batch=None, seed=None):
     """The virtual pair's losses (l+, l-) on ``params`` against the
     materialized probes' (kernel K1 perturbing in place, then undoing),
     and their relative differences; then l- of a materialized theta -
@@ -843,8 +870,9 @@ def probe_gap(spec, cfg, params, plant=1.0):
     as the virtual l- has; the probe above reaches it as theta + eps z -
     2 eps z, rounded twice) and its relative difference to the virtual
     l-.  ``plant`` != 1 offsets that probe on purpose, to show the gate
-    on it firing.  The weights are put back bit for bit from a copy on
-    the card."""
+    on it firing.  ``batch`` and ``seed`` default to the first rows of
+    the spec's dataset and a fixed seed.  The weights are put back bit
+    for bit from a copy on the card."""
     import torch
     from repro_torch import fused
     from repro_torch.api import runners
@@ -853,11 +881,14 @@ def probe_gap(spec, cfg, params, plant=1.0):
     from repro_torch.models import lm
 
     d = runners.derive(spec)
-    data = synthetic.make_dataset(d.task, 64)
-    batch = {k: torch.as_tensor(data[k][:spec.run.batch_size], device="cuda")
-             for k in ("tokens", "labels", "loss_mask")}
+    if batch is None:
+        data = synthetic.make_dataset(d.task, 64)
+        batch = {k: torch.as_tensor(data[k][:spec.run.batch_size],
+                                    device="cuda")
+                 for k in ("tokens", "labels", "loss_mask")}
     zspec = zo.build_spec(params, lm.zo_group_fn)
-    seed = rng.fold_py(rng.fold_py(0, 0xC0FFEE), 99)
+    if seed is None:
+        seed = rng.fold_py(rng.fold_py(0, 0xC0FFEE), 99)
     masks, idxs, _ = zo.stratified_select(zspec, seed, d.n_drop)
     eps = spec.optimizer.eps
     pair = lm.lm_loss(cfg, params, batch, perturb=fused.make_pair_ctx(
@@ -1012,12 +1043,15 @@ def step_fn(spec, cfg, params):
     from repro_torch.api import runners
     from repro_torch.core import rng, zo
     from repro_torch.data import synthetic
-    from repro_torch.models import lm
+    from repro_torch.models import frontends, lm
 
     d = runners.derive(spec)
     data = synthetic.make_dataset(d.task, 64)
     batch = {k: torch.as_tensor(data[k][:spec.run.batch_size], device="cuda")
              for k in ("tokens", "labels", "loss_mask")}
+    if frontends.uses_embeds(cfg):             # the zoo runs' stub frames
+        batch["embeds"] = frontends.stub_embeddings(
+            cfg, *batch["tokens"].shape, seed=1).float()
     step, init = estimators.make_step(
         lambda p, b, perturb=None: lm.lm_loss(cfg, p, b, perturb=perturb),
         zo.build_spec(params, lm.zo_group_fn), d.est_cfg)
@@ -1025,21 +1059,198 @@ def step_fn(spec, cfg, params):
     return lambda t: step(params, init(), batch, t, base)
 
 
-def phase_profile(spec, cfg, params, tag="profile", ops=False,
-                  regions=None):
-    """One more step of ``spec`` (the main path's by default) under
-    ``torch.profiler``: device time by kernel, the kernels a step, and
-    the device's idle share of the step's wall time; with ``ops``, also
-    the aten ops by the device time of the kernels they launched.
-    ``regions`` ({label: (module, function name)}) wraps each function
-    in a ``record_function`` of its label for the profiled step only and
-    logs the device time of the kernels launched inside it."""
+# A profiled window (``measure_window``): torch.profiler can lose the
+# first records of a window, and the last ones of a long window (PERF.md
+# §7).  So fills open the window and close it (``window_edge``), the
+# device idles WINDOW_PAD seconds before it closes, a marker kernel
+# (``torch.cuda._sleep``, WINDOW_MARK in the trace) opens every step and
+# one more ends the last, ``window_check`` holds the records between the
+# markers to each other and to the K1-K4 counters, and ``edge_losses``
+# counts the fills each edge lost.
+WINDOW_WARM = 1                  # first calls, before the window
+WINDOW_EDGE, WINDOW_EDGE_BYTES = 1024, 16 << 20   # fills of 16 MiB
+WINDOW_PAD = 0.05
+WINDOW_TRIES = 2
+WINDOW_MARK = "spin_kernel"
+WINDOW_MARK_CYCLES = 1000
+PORT_KERNELS = {"zo_axpy_2d_kernel": ("zo_axpy_2d",),       # trace name:
+                "flash_fwd_kernel": ("flash_attention",),   # its counters
+                "pmatmul_kernel": ("pmatmul_stack", "pmatmul")}
+
+
+class WindowLost(SystemExit):
+    """A profiled window whose records are not whole."""
+
+
+def window_edge(buf):
+    """One edge of a window: WINDOW_EDGE fills of ``buf`` (≈ 7 ms of
+    device time at 16 MiB a fill), records the window may lose."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    for _ in range(WINDOW_EDGE):
+        buf.zero_()
+    torch.cuda.synchronize()
+
+
+def device_record(e, labels=()):
+    """Whether profiler event ``e`` is a device record (a kernel, copy or
+    set) and not the device range of a host annotation (a label of
+    ``labels``)."""
+    return (str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in labels)
+
+
+def window_steps(records, steps):
+    """A window's device record names in start order, split at the
+    marker kernels into the ``steps`` steps they open (the last marker
+    ends the last step; the records before the first and after the last
+    are the window's edges): [[name, ...]].  Raises unless there are
+    ``steps`` + 1 markers: the window lost a step's first or last
+    records."""
+    cuts = [i for i, n in enumerate(records) if WINDOW_MARK in n]
+    if len(cuts) != steps + 1:
+        raise WindowLost(f"window: {len(cuts)} markers for {steps} steps "
+                         f"at records {cuts[:1]}..{cuts[-1:]} of "
+                         f"{len(records)}: the profiler lost records")
+    return [records[a + 1:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def edge_losses(records):
+    """The fills a window's edges lost, (opening, closing): WINDOW_EDGE
+    less its records (names in start order, every marker found) before
+    the first marker and after the last."""
+    cuts = [i for i, n in enumerate(records) if WINDOW_MARK in n]
+    return WINDOW_EDGE - cuts[0], WINDOW_EDGE - (len(records) - 1 - cuts[-1])
+
+
+WINDOW_ALIKE = ("equal", "steady")
+WINDOWS = {"lost": [], "refused": 0}   # every window's edge_losses, refusals
+
+
+def window_check(per_step, launched=None, alike="equal"):
+    """Raise unless a window's records, ``per_step`` ([[name, ...]] by
+    step, markers taken out), are whole.  ``alike`` says how its steps
+    compare: "equal", each step holds every kernel name as often as the
+    others do; "steady" (an engine's decode steps, where a step that
+    opens a page may add kernels; 3 steps or more), at least as often as
+    most steps do.  ``launched`` ({trace
+    name: launches}, from the kernels' own counters, not from the
+    profiler) must equal the window's records of those names.  Returns
+    {name: count a step} from the first step."""
+    import collections
+    if alike not in WINDOW_ALIKE:
+        raise ValueError(f"alike {alike!r} not in {WINDOW_ALIKE}")
+    counts = [collections.Counter(s) for s in per_step]
+    for name in set().union(*counts):
+        got = [c[name] for c in counts]
+        typical = collections.Counter(got).most_common(1)[0][0]
+        if (min(got) < typical if alike == "steady"
+                else len(set(got)) > 1):
+            raise WindowLost(f"window: {name[:80]} recorded {got} times "
+                             "by step: the profiler lost records")
+    for key, n in (launched or {}).items():
+        seen = sum(c[name] for c in counts for name in c if key in name)
+        if seen != n:
+            raise WindowLost(f"window: {seen} records of {key} against "
+                             f"{n} launches counted: the profiler lost "
+                             "records")
+    return dict(counts[0])
+
+
+def measure_window(tag, step, steps, *, start=0, cpu=False, alike="equal",
+                   labels=(), warm=WINDOW_WARM):
+    """``step(i)`` for ``i`` from ``start``: ``warm`` calls, then
+    ``steps`` under one ``torch.profiler``, each opened by a marker
+    kernel and closed by a synchronize, with a last marker after them and
+    the window's edges around them (``window_edge`` at either end,
+    WINDOW_PAD seconds of idle device before it closes); ``cpu`` adds
+    host activity (the aten ops), ``labels`` are ``record_function``
+    labels whose device ranges ``region_times`` reads.  The records
+    between the markers are held to ``window_check`` (steps ``alike`` as
+    it says, the K1-K4 counters beside them); a window that lost records
+    is logged and measured again, up to WINDOW_TRIES windows, and the
+    last one's loss raises.  Returns the device busy seconds and host
+    wall seconds over the recorded steps, the idle share 1 - busy /
+    wall, each step's wall, the kernels a step, (µs, count) by kernel
+    name over the steps, and the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    counters = _counters()
+    edge = torch.empty(WINDOW_EDGE_BYTES // 4, device="cuda")
+    for k in range(warm):
+        step(start + k)
+    torch.cuda.synchronize()
+    k = start + warm
+    for attempt in range(WINDOW_TRIES):
+        walls = []
+        with profile(activities=acts) as prof:
+            window_edge(edge)
+            before = {n: c.launches for n, c in counters.items()}
+            for k in range(k, k + steps):
+                t = time.perf_counter()
+                torch.cuda._sleep(WINDOW_MARK_CYCLES)
+                step(k)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+            torch.cuda._sleep(WINDOW_MARK_CYCLES)
+            window_edge(edge)
+            time.sleep(WINDOW_PAD)
+        k += 1
+        launched = {name: sum(counters[c].launches - before[c] for c in cs)
+                    for name, cs in PORT_KERNELS.items()}
+        evs = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                     for e in prof.events() if device_record(e, labels))
+        try:
+            per_step = window_steps([n for _, n, _ in evs], steps)
+            window_check(per_step, launched, alike=alike)
+            break
+        except WindowLost as e:
+            WINDOWS["refused"] += 1
+            if attempt + 1 == WINDOW_TRIES:
+                raise
+            log(f"[{tag}] window {attempt + 1} of {WINDOW_TRIES}: {e}; "
+                "measuring again")
+    marks = [i for i, (_, n, _) in enumerate(evs) if WINDOW_MARK in n]
+    by_name = {}
+    for _, n, us in evs[marks[0] + 1:marks[-1]]:
+        if WINDOW_MARK not in n:
+            a, c = by_name.get(n, (0.0, 0))
+            by_name[n] = (a + us, c + 1)
+    busy = sum(us for us, _ in by_name.values()) / 1e6
+    if busy == 0:
+        raise SystemExit(f"{tag}: the window holds no device time")
+    kernels = sum(c for _, c in by_name.values()) / steps
+    wall = sum(walls)
+    lost = edge_losses([n for _, n, _ in evs])
+    WINDOWS["lost"].append(lost)
+    log(f"[{tag}] window of {steps} steps: {time.perf_counter() - t0:.2f} "
+        f"s in all, {wall:.2f} s of them in the recorded steps; the edges "
+        f"lost {lost[0]} and {lost[1]} of {WINDOW_EDGE} fills")
+    return {"busy": busy, "wall": wall, "walls": walls,
+            "idle": 1 - busy / wall, "kernels": kernels, "steps": steps,
+            "by_name": by_name, "prof": prof}
+
+
+PROFILE_STEPS = 2                  # recorded steps of a profile
+
+
+def phase_profile(spec, cfg, params, tag="profile", ops=False,
+                  regions=None, alike="equal", steps=PROFILE_STEPS):
+    """``steps`` more steps of ``spec`` (the main path's by default)
+    under ``measure_window`` with host activity: device time by kernel,
+    the kernels a step, and the device's idle share of the steps' wall
+    time; with ``ops``, also the aten ops by the device time of the
+    kernels they launched.  ``regions`` ({label: (module, function
+    name)}) wraps each function in a ``record_function`` of its label for
+    the profiled steps only and logs the device time of the kernels
+    launched inside it; ``alike`` is ``measure_window``'s.  Figures are
+    a step's."""
+    from torch.profiler import record_function
 
     run = step_fn(spec, cfg, params)
-    run(spec.run.steps)                                  # warm
-    torch.cuda.synchronize()
     regions = regions or {}
     saved = {label: getattr(mod, name)
              for label, (mod, name) in regions.items()}
@@ -1052,50 +1263,47 @@ def phase_profile(spec, cfg, params, tag="profile", ops=False,
     for label, (mod, name) in regions.items():
         setattr(mod, name, labelled(saved[label], label))
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run(spec.run.steps + 1)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
+        win = measure_window(tag, run, steps, start=spec.run.steps,
+                             cpu=True, alike=alike, labels=tuple(regions))
     finally:
         for label, (mod, name) in regions.items():
             setattr(mod, name, saved[label])
-    dev_us, op_us = {}, {}           # device kernels only: an aten op's
-    for e in prof.key_averages():    # row repeats its kernels' time
-        if e.key in regions:         # a label's device-side range
-            continue
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            dev_us[e.key] = (us, e.count)
-        elif e.key.startswith("aten::"):
-            us = getattr(e, "device_time_total", None)
-            op_us[e.key] = (e.cuda_time_total if us is None else us,
-                            e.count)
-    busy = sum(us for us, _ in dev_us.values()) / 1e6
+    n = win["steps"]
+    wall, busy, prof = win["wall"] / n, win["busy"] / n, win["prof"]
     log(f"[{tag}] step wall {wall:.3f} s, device busy {busy:.3f} s, "
-        f"idle share {max(0.0, 1 - busy / wall):.3f}, "
-        f"{sum(n for _, n in dev_us.values())} kernels")
-    for key, (us, span, n) in region_times(prof, regions).items():
-        log(f"[{tag}] region {key}: {us / 1e3:.3f} ms of kernel time over "
-            f"{n} calls ({span / 1e3:.3f} ms of device-side range)")
-    if busy == 0:
-        raise SystemExit(f"{tag}: the trace holds no device time")
-    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[{tag}] {us / 1e3:9.3f} ms {n:6d} x  {key[:90]}")
-    for name in ("zo_axpy_2d_kernel", "flash_fwd_kernel", "pmatmul_kernel"):
-        for key, (us, n) in dev_us.items():
-            if name in key and n:
-                log(f"[{tag}] per launch: {us / n / 1e3:.4f} ms over {n} "
-                    f"x {key[:70]}")
+        f"idle share {win['idle']:.3f}, {win['kernels']:g} kernels a step "
+        f"({n} recorded steps)")
+    for key, (us, span, calls) in region_times(prof, regions).items():
+        log(f"[{tag}] region {key}: {us / n / 1e3:.3f} ms of kernel time "
+            f"over {calls / n:g} calls ({span / n / 1e3:.3f} ms of "
+            "device-side range) a step")
+    log_kernels(tag, win)
     if ops:
-        for key, (us, n) in sorted(op_us.items(),
+        op_us = {}                   # an aten op's row repeats its kernels'
+        for e in prof.key_averages():
+            if e.key.startswith("aten::"):
+                us = getattr(e, "device_time_total", None)
+                op_us[e.key] = (e.cuda_time_total if us is None else us,
+                                e.count)
+        for key, (us, c) in sorted(op_us.items(),
                                    key=lambda kv: -kv[1][0])[:16]:
-            log(f"[{tag}] op {us / 1e3:9.3f} ms {n:6d} x  {key} (device "
-                "time of its kernels, nested ops included)")
+            log(f"[{tag}] op {us / n / 1e3:9.3f} ms {c / n:6g} x  {key} "
+                "(device time of its kernels a step, nested ops included)")
     return wall, busy
+
+
+def log_kernels(tag, win, top=12):
+    """Log a window's ``top`` kernels by device time and each port
+    kernel's time a launch, a step's figures."""
+    n = win["steps"]
+    for key, (us, c) in sorted(win["by_name"].items(),
+                               key=lambda kv: -kv[1][0])[:top]:
+        log(f"[{tag}] {us / n / 1e3:9.3f} ms {c / n:6g} x  {key[:150]}")
+    for name in PORT_KERNELS:
+        for key, (us, c) in win["by_name"].items():
+            if name in key and c:
+                log(f"[{tag}] per launch: {us / c / 1e3:.4f} ms over "
+                    f"{c / n:g} a step x {key[:70]}")
 
 
 def region_times(prof, labels):
@@ -1110,10 +1318,11 @@ def region_times(prof, labels):
     ranges = {label: [] for label in labels}
     kernels = []
     for e in prof.events():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
         iv = (e.time_range.start, e.time_range.end)
-        (ranges[e.name] if e.name in ranges else kernels).append(iv)
+        if str(e.device_type).endswith("CUDA") and e.name in ranges:
+            ranges[e.name].append(iv)
+        elif device_record(e, labels):
+            kernels.append(iv)
     kernels.sort()
     starts = [k[0] for k in kernels]
     out = {}
@@ -1260,8 +1469,163 @@ def phase_estimators(hold, cfg):
         spec = api.with_overrides(api.preset(name), {**MAIN_OVERRIDES, **ov})
         hist, launches, peak = run_counted(f"estimators {tag}", spec, params)
         check_launches(f"estimators {tag}", spec, params, launches)
-        if name == "fzoo-opt13b-q16":
-            phase_profile(spec, cfg, params, tag="profile one_sided q=16")
+        if name == "fzoo-opt13b-q16":      # one recorded step of ≈ 2.7 s
+            phase_profile(spec, cfg, params, tag="profile one_sided q=16",
+                          steps=1)
+
+
+# The mezo phase: the paper's baseline (``mezo-opt13b``, sparsity 0)
+# beside LeZO on OPT-13B at full width and depth, under each forward
+# backend, every run from the same weights and seed.
+MEZO_STEPS = 4                               # 1 warm + 3 timed
+MEZO_PRESETS = ("mezo-opt13b", "lezo-opt13b")
+MEZO_BACKENDS = (("virtual", {}),
+                 ("materialized", {"runtime.forward_backend":
+                                   "materialized"}))
+PAPER_SPEEDUP = "over 3x"                    # LeZO over MeZO (PAPER.md)
+
+
+@contextlib.contextmanager
+def tap_first_pair():
+    """Record the first two-point estimate of a run beside it: its batch,
+    its seed and (l+, l-).  A reading: the estimate runs as before."""
+    from repro_torch.estimators import two_point
+    seen = {}
+    estimate = two_point.TwoPointSPSA.estimate
+
+    def tapped(self, loss_fn, params, batch, seed, state=None):
+        out = estimate(self, loss_fn, params, batch, seed, state)
+        if not seen:
+            seen.update(batch={k: v.clone() for k, v in batch.items()},
+                        seed=seed, pair=[float(out[2]["l_plus"]),
+                                         float(out[2]["l_minus"])])
+        return out
+    two_point.TwoPointSPSA.estimate = tapped
+    try:
+        yield seen
+    finally:
+        two_point.TwoPointSPSA.estimate = estimate
+
+
+def mezo_counters(tag, spec, cfg, params, hist, runs):
+    """The run's ``obs.trace`` counters against the reckoning: 2 probes,
+    one selection and the estimator's axpy sweeps a step, K3/K4's W and
+    z tiles (virtual) from the recorded layer selections, and the
+    active-layer gauge and every step's selection at L - n_drop."""
+    from repro_torch import api, estimators, obs
+    from repro_torch.core import zo
+    from repro_torch.models import lm
+
+    d = api.derive(spec)
+    steps = spec.run.steps
+    rd = obs.load_run(hist["run_id"], runs)
+    trace = obs.read_jsonl(os.path.join(rd.dir, obs.runlog.TRACE_FILE))
+    last = [e for e in trace if e.get("type") == "counters"][-1]
+    c, g = last["counters"], last["gauges"]
+    est = estimators.build_estimator(zo.build_spec(params, lm.zo_group_fn),
+                                     d.est_cfg)
+    sels = [r["layer_sel"] for r in rd.steps]
+    want = {obs.CTR_PROBES: 2 * steps, obs.CTR_SELECTS: steps,
+            obs.CTR_AXPY: est.step_counts()["axpy_sweeps"] * steps}
+    if d.est_cfg.forward_backend == "virtual":
+        want[obs.CTR_WLOAD], want[obs.CTR_ZREGEN] = expected_tiles(
+            cfg, spec, sels)
+    active = cfg.num_layers - d.n_drop
+    log(f"[{tag}] counters {c}; gauges {g}; active layers a step "
+        f"{[sum(s) for s in sels]} (reckoned {active})")
+    bad = {k: (c.get(k), v) for k, v in want.items() if c.get(k) != v}
+    if (bad or g.get(obs.GAUGE_ACTIVE) != active or len(sels) != steps
+            or any(sum(s) != active for s in sels)):
+        raise SystemExit(f"{tag}: counters (got, want) {bad}; gauge "
+                         f"{g}, selections {sels}, want {active} active")
+
+
+def phase_mezo(hold, cfg):
+    """MeZO (``mezo-opt13b``) and LeZO (``lezo-opt13b``) on OPT-13B at
+    full width and depth with the main path's overrides, under the
+    virtual paired forward and under the materialized probes, all four
+    from the same weights (a copy on the card puts them back) and seed,
+    ``MEZO_STEPS`` steps each through ``api.run`` with telemetry on:
+    finite losses, launches as reckoned, the ``obs.trace`` counters and
+    gauge (``mezo_counters``), and each MeZO run's first (l+, l-)
+    against the probes of its own backend on the same weights, batch and
+    seed (the virtual pair, or the materialized probes: within
+    DIRECT_GAP) with the virtual l- against a materialized theta - eps z
+    (``check``'s gate on it).  Read, not gated: the gap to the other
+    backend's probes, step seconds, device time (``measure_window``),
+    peak (less the copy), and MeZO / LeZO under each backend."""
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch import api
+    from repro_torch.core import zo
+
+    params = full_params(hold, cfg)
+    start = [t.clone() for _, t in zo.leaf_items(params)]
+    held = sum(t.numel() * t.element_size() for t in start) / 2 ** 30
+
+    def restore():
+        with torch.no_grad():
+            for (_, t), t0 in zip(zo.leaf_items(params), start):
+                t.copy_(t0)
+    runs = tempfile.mkdtemp(prefix="chip_smoke_mezo_")
+    walls = {}
+    try:
+        for backend, over in MEZO_BACKENDS:
+            for name in MEZO_PRESETS:
+                tag = f"mezo {name} {backend}"
+                spec = api.with_overrides(api.preset(name), {
+                    **MAIN_OVERRIDES, **over, "run.steps": MEZO_STEPS,
+                    "telemetry.enabled": True, "telemetry.runs_dir": runs})
+                restore()
+                with tap_first_pair() as first:
+                    hist, n, peak = run_counted(tag, spec, params)
+                check_launches(tag, spec, params, n)
+                mezo_counters(tag, spec, cfg, params, hist, runs)
+                secs = hist["step_seconds"][1:]
+                walls[name, backend] = statistics.median(secs)
+                win = measure_window(tag, step_fn(spec, cfg, params), 2,
+                                     start=MEZO_STEPS)
+                log(f"[{tag}] {smi('name,power.limit')}: step_seconds "
+                    f"{stats(secs)}; device {win['busy'] / win['steps']:.4f} "
+                    f"s a step, idle share {win['idle']:.4f}, "
+                    f"{win['kernels']:g} kernels a step; peak "
+                    f"{peak - held:.2f} GiB (less the {held:.2f} GiB copy "
+                    f"of the start); launches {n}")
+                if name != MEZO_PRESETS[0]:
+                    continue
+                restore()                     # the weights its step 0 saw
+                gc.collect()                  # the probes copy all 40 layers
+                torch.cuda.empty_cache()
+                pair, mat, rel, direct, gap = probe_gap(
+                    spec, cfg, params, batch=first["batch"],
+                    seed=first["seed"])
+                same = mat if backend == "materialized" else pair
+                other = pair if backend == "materialized" else mat
+                rs = [abs(a - b) / abs(b) for a, b in zip(first["pair"],
+                                                          same)]
+                ro = [abs(a - b) / abs(b) for a, b in zip(first["pair"],
+                                                          other)]
+                # read, not gated: the materialized l- is theta + eps z -
+                # 2 eps z rounded twice on all 40 layers, and its gap to
+                # the virtual l- grows with the weights (check's 1e-2 is
+                # LeZO's 10 layers); theta - eps z, rounded once, is gated
+                log(f"[{tag}] step 0 (l+, l-) {first['pair']}; on the same "
+                    f"weights, batch and seed: virtual pair {pair}, "
+                    f"materialized {mat}: rel diff to its own kind {rs}, to "
+                    f"the other {ro}; theta - eps z rel diff {gap}")
+                if max(rs) > DIRECT_GAP or not direct_gate(gap):
+                    raise SystemExit(f"{tag}: step 0's probe losses "
+                                     "outside the check phase's gates")
+        restore()
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    del start
+    for backend, _ in MEZO_BACKENDS:
+        m, z = (walls[p, backend] for p in MEZO_PRESETS)
+        log(f"[mezo] {backend}: MeZO / LeZO step wall median {m:.4f} / "
+            f"{z:.4f} s = {m / z:.2f}x (the paper, on its own hardware: "
+            f"{PAPER_SPEEDUP})")
 
 
 def phase_momentum(hold, cfg):
@@ -1685,54 +2049,41 @@ def engine_vs_lockstep(tag, cfg, params, spec, reqs, base, tapped, check,
     return worst
 
 
-def profile_one(tag, fn, what):
-    """``fn()`` once under ``torch.profiler``: its wall and device busy
-    ms, the device kernels by time and the aten ops that launched them.
-    Returns (wall, busy) seconds and the kernels it ran."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        one = time.perf_counter() - t
-    dev_us, op_us = {}, {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            dev_us[e.key] = (e.self_cuda_time_total if us is None else us,
-                             e.count)
-        elif e.key.startswith("aten::"):     # the ops that launched them
+def profile_one(tag, fn, what, steps=PROFILE_STEPS, alike="equal"):
+    """``fn()``, which its caller has run before, under
+    ``measure_window`` with host activity, ``steps`` recorded calls
+    (``alike`` as that takes it): a call's wall and device busy ms, the
+    device kernels by time and the aten ops that launched them.  Returns
+    a call's (wall, busy) seconds and the kernels it ran."""
+    win = measure_window(tag, lambda i: fn(), steps, cpu=True, alike=alike,
+                         warm=0)
+    n = win["steps"]
+    one, busy = win["wall"] / n, win["busy"] / n
+    log(f"[{tag}] profile of {what}: wall {one * 1e3:.2f} ms, device busy "
+        f"{busy * 1e3:.2f} ms, {win['kernels']:g} kernels (a call of "
+        f"{n} recorded)")
+    log_kernels(tag, win)
+    op_us = {}
+    for e in win["prof"].key_averages():
+        if e.key.startswith("aten::"):     # the ops that launched them
             us = getattr(e, "device_time_total", None)
             op_us[e.key] = (e.cuda_time_total if us is None else us,
                             e.count)
-    busy = sum(us for us, _ in dev_us.values()) / 1e6
-    log(f"[{tag}] profile of {what}: wall {one * 1e3:.2f} ms, device busy "
-        f"{busy * 1e3:.2f} ms, {sum(n for _, n in dev_us.values())} "
-        "kernels")
-    for key, (us, n) in sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[{tag}] {us / 1e3:9.3f} ms {n:6d} x  {key[:150]}")
-    for key, (us, n) in sorted(op_us.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[{tag}] op {us / 1e3:9.3f} ms {n:6d} x  {key} (device time "
-            "of its kernels, nested ops included)")
-    if busy == 0:
-        raise SystemExit(f"{tag}: the profile of {what} holds no device "
-                         "time")
-    return one, busy, sum(n for _, n in dev_us.values())
+    for key, (us, c) in sorted(op_us.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[{tag}] op {us / n / 1e3:9.3f} ms {c / n:6g} x  {key} (device "
+            "time of its kernels a call, nested ops included)")
+    return one, busy, win["kernels"]
 
 
 def decode_profile(tag, eng, reqs, spec):
     """A steady decode step of ``eng``: every lane decoding (64-token
-    prompts of ``reqs``), no admission, no retirement; one step under
-    ``profile_one``, then the idle share over 10.  Returns the 10 steps'
-    wall and device ms a step, idle share and kernels a step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    prompts of ``reqs``), no admission, no retirement; 3 steps under
+    ``profile_one``, then the idle share over 10 (``measure_window``,
+    steps alike as "steady": a step that opens a page may add kernels).  Returns the 10 steps' wall
+    and device ms a step, idle share and kernels a step."""
     from repro_torch import serving
     steady = [serving.Request(rid=100 + i, tokens=reqs[i][1][:64],
-                              max_new_tokens=48, seed=SEED_BASE + 100 + i)
+                              max_new_tokens=96, seed=SEED_BASE + 100 + i)
               for i in range(spec.serving.max_lanes)]
     for r in steady:
         eng.submit(r)
@@ -1741,25 +2092,13 @@ def decode_profile(tag, eng, reqs, spec):
     for _ in range(2):
         eng.step()                                        # warm
     profile_one(tag, eng.step, f"one steady decode step "
-                f"({spec.serving.max_lanes} lanes)")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(10):
-            eng.step()
-        torch.cuda.synchronize()
-        wall10 = time.perf_counter() - t
-    busy = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            busy += (e.self_cuda_time_total if us is None else us) / 1e6
-    if busy == 0:
-        raise SystemExit(f"{tag}: the decode profile holds no device time")
-    kernels = sum(e.count for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")) / 10
+                f"({spec.serving.max_lanes} lanes)", steps=3, alike="steady")
+    win = measure_window(tag, lambda i: eng.step(), 10, alike="steady",
+                         warm=0)
+    wall10, busy, kernels = win["wall"], win["busy"], win["kernels"]
     log(f"[{tag}] 10 steady decode steps: wall {wall10:.3f} s "
         f"({wall10 * 100:.2f} ms a step), device busy {busy:.3f} s, idle "
-        f"share {1 - busy / wall10:.3f}, {kernels:g} kernels a step")
+        f"share {win['idle']:.3f}, {kernels:g} kernels a step")
     return {"step_ms": wall10 * 100, "device_ms": busy * 100,
             "idle": 1 - busy / wall10, "kernels": kernels}
 
@@ -1938,14 +2277,16 @@ def phase_serve(hold, cfg):
 
 
 # The zoo phase: the dense model zoo (every attn + dense config) on the
-# card.  Qwen3-14B runs at full width and depth (GQA with G = 5, qk-norm,
-# rope, SwiGLU, an untied (5120, 151936) head); the other five at full
-# width, cut to ZOO_DEPTH layers; deepseek-coder-33b also at full depth.
+# card, each at its published depth and full width.  Qwen3-14B (GQA with
+# G = 5, qk-norm, rope, SwiGLU, an untied (5120, 151936) head) is also
+# checked against the materialized probes and served; deepseek-coder-33b
+# takes 2 steps (its peak).
 ZOO_ARCH = "qwen3-14b"
-ZOO_OTHERS = ("codeqwen1.5-7b", "internlm2-1.8b", "deepseek-coder-33b",
-              "musicgen-large", "internvl2-2b")
+ZOO_DENSE = ("codeqwen1.5-7b", "internlm2-1.8b", "musicgen-large",
+             "internvl2-2b")
 ZOO_BIG = "deepseek-coder-33b"
-ZOO_DEPTH = 2
+ZOO_STEADY = 6                           # steady steps after TRACE_WARM
+ZOO_WINDOW = 2                           # steps a profiled window
 ZOO_REQUESTS, ZOO_SHARED = 8, 4          # engine requests; sharing a prefix
 ZOO_LATE, ZOO_AFTER = 4, 8               # the last 4 arrive after 8 steps
 ZOO_CHECK = (0, 1)                       # against lockstep at batch 1
@@ -1976,6 +2317,84 @@ def zoo_row(out, kernel, shape, run, fn, plain, lib, err, tol, nbytes,
         f"{b_ms:.4f} ms ({b_by})")
 
 
+def zoo_k2(out, g, B, S, KV, G, dh, run):
+    """K2 against its plain version on the paired forward's attention
+    (2B, S) at G query heads a KV head, SDPA with ``enable_gqa`` beside:
+    one ``flash_attention`` row of ``out`` for the zoo run ``run``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as kfa
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    q = torch.randn((2 * B, S, KV, G, dh), generator=g, device=dev, dtype=bf)
+    k = torch.randn((2 * B, S, KV, dh), generator=g, device=dev, dtype=bf)
+    v = torch.randn((2 * B, S, KV, dh), generator=g, device=dev, dtype=bf)
+    err = close(kfa.flash_attention(q, k, v, causal=True),
+                kfa.flash_attention_plain(q, k, v, causal=True),
+                f"flash_attention {tuple(q.shape)}")
+    qs = q.reshape(2 * B, S, KV * G, dh).transpose(1, 2).contiguous()
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+    zoo_row(out, "flash_attention", f"q {tuple(q.shape)}, G = {G}", run,
+            lambda: kfa.flash_attention(q, k, v, causal=True),
+            lambda: kfa.flash_attention_plain(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True),
+            err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
+            flops=4.0 * 2 * B * KV * G * dh * (S * (S + 1) // 2),
+            plain_reps=2, reps=50)
+
+
+def zoo_k3(out, g, eps, name, K, N, M, run):
+    """K3 against its plain version on x (2, M, K) @ W (K, N), both
+    probes active, ``torch.matmul`` beside: one ``pmatmul_stack`` row."""
+    import torch
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    args = ((0xBEEF, 0xBEEF), (eps, -eps), (True, True))
+    x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
+    w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * K ** -0.5
+    err = close(fmm.pmatmul_stack(x, w, *args),
+                fref.pmatmul_stack(x, w, *args),
+                f"pmatmul_stack {name} ({K}, {N})")
+    zoo_row(out, "pmatmul_stack", f"{name}: x (2, {M}, {K}) @ W ({K}, {N})",
+            run, lambda: fmm.pmatmul_stack(x, w, *args),
+            lambda: fref.pmatmul_stack(x, w, *args),
+            lambda: torch.matmul(x, w), err, CLOSE_TOL,
+            (x.numel() + w.numel() + 2 * M * N) * 2,
+            flops=2.0 * 2 * M * K * N, insns=K * N * RNG_OPS)
+
+
+def zoo_k4(out, g, eps, tag, B, S, Dh, Vh, run):
+    """K4 against its plain version on an untied head h (B, S, Dh) @ W
+    (Dh, Vh) read as stored (``trans=False``), ``torch.matmul`` beside;
+    the launch must load by TMA, or by per-thread loads where a row of
+    W is not 16-byte aligned (an odd vocabulary): one ``pmatmul`` row."""
+    import torch
+    from repro_torch.fused import matmul as fmm
+    from repro_torch.fused import ref as fref
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    route = "thread" if (Vh * 2) % 16 else "tma"
+    h = torch.randn((B, S, Dh), generator=g, device=dev, dtype=bf)
+    w = torch.randn((Dh, Vh), generator=g, device=dev, dtype=bf) * Dh ** -0.5
+    for c in fmm.route_counters.values():
+        c.launches = 0
+    got = fmm.pmatmul(h, w, 0xBEEF, eps, True)
+    routes = {n: c.launches for n, c in fmm.route_counters.items()}
+    if routes != {"tma": int(route == "tma"),
+                  "thread": int(route == "thread")}:
+        raise SystemExit(f"zoo: K4 on {tag} ({Dh}, {Vh}) loaded by "
+                         f"{routes}, want the {route} route")
+    err = close(got, fref.pmatmul(h, w, 0xBEEF, eps, True), f"pmatmul {tag}")
+    del got
+    zoo_row(out, "pmatmul", f"{tag}: h ({B}, {S}, {Dh}) @ W ({Dh}, {Vh}), "
+            f"trans=False, {route} route", run,
+            lambda: fmm.pmatmul(h, w, 0xBEEF, eps, True),
+            lambda: fref.pmatmul(h, w, 0xBEEF, eps, True),
+            lambda: torch.matmul(h, w), err, CLOSE_TOL,
+            (h.numel() + w.numel() + B * S * Vh) * 2,
+            flops=2.0 * B * S * Dh * Vh, insns=Dh * Vh * RNG_OPS, reps=10)
+
+
 def zoo_parity(cfg, eps):
     """Each kernel against its plain version at Qwen3-14B's shapes (B =
     16, S = 63, the +-eps pair): K2 at G = 5, 2 and 7 (8 KV heads); K3 at
@@ -1983,11 +2402,7 @@ def zoo_parity(cfg, eps):
     and on internvl2-2b's odd-vocabulary head by per-thread loads; K1
     on head/w as one row.  Returns the ``zoo_shapes`` rows by kernel."""
     import torch
-    import torch.nn.functional as F
     from repro_torch import configs
-    from repro_torch.fused import matmul as fmm
-    from repro_torch.fused import ref as fref
-    from repro_torch.kernels import flash_attn as kfa
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import zo_axpy as kzo
 
@@ -2001,77 +2416,21 @@ def zoo_parity(cfg, eps):
     w_seed = 0xBEEF
 
     # K2: the paired forward's attention at G query heads a KV head
-    pairs = S * (S + 1) // 2
     for G, run in ((cfg.n_heads // KV, ZOO_ARCH), (2, "internlm2-1.8b"),
                    (7, ZOO_BIG)):
-        q = torch.randn((2 * B, S, KV, G, dh), generator=g, device=dev,
-                        dtype=bf)
-        k = torch.randn((2 * B, S, KV, dh), generator=g, device=dev,
-                        dtype=bf)
-        v = torch.randn((2 * B, S, KV, dh), generator=g, device=dev,
-                        dtype=bf)
-        err = close(kfa.flash_attention(q, k, v, causal=True),
-                    kfa.flash_attention_plain(q, k, v, causal=True),
-                    f"flash_attention G = {G}")
-        qs = q.reshape(2 * B, S, KV * G, dh).transpose(1, 2).contiguous()
-        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
-        zoo_row(out, "flash_attention", f"q {tuple(q.shape)}, G = {G}", run,
-                lambda: kfa.flash_attention(q, k, v, causal=True),
-                lambda: kfa.flash_attention_plain(q, k, v, causal=True),
-                lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True),
-                err, CLOSE_TOL, (2 * q.numel() + k.numel() + v.numel()) * 2,
-                flops=4.0 * 2 * B * KV * G * dh * pairs, plain_reps=2,
-                reps=50)
-        del q, k, v, qs, ks, vs
-
+        zoo_k2(out, g, B, S, KV, G, dh, run)
     # K3: the layer's projections, both probes active
-    args = ((w_seed, w_seed), (eps, -eps), (True, True))
     for name, (K, N) in (("wq, wo", (D, D)), ("wk, wv", (D, KV * dh)),
                          ("wg, wu", (D, Fd)), ("wd", (Fd, D))):
-        x = torch.randn((2, M, K), generator=g, device=dev, dtype=bf)
-        w = torch.randn((K, N), generator=g, device=dev, dtype=bf) * K ** -0.5
-        err = close(fmm.pmatmul_stack(x, w, *args),
-                    fref.pmatmul_stack(x, w, *args),
-                    f"pmatmul_stack {name} ({K}, {N})")
-        zoo_row(out, "pmatmul_stack", f"{name}: x (2, {M}, {K}) @ W "
-                f"({K}, {N})", ZOO_ARCH,
-                lambda: fmm.pmatmul_stack(x, w, *args),
-                lambda: fref.pmatmul_stack(x, w, *args),
-                lambda: torch.matmul(x, w), err, CLOSE_TOL,
-                (x.numel() + w.numel() + 2 * M * N) * 2,
-                flops=2.0 * 2 * M * K * N, insns=K * N * RNG_OPS)
-        del x, w
+        zoo_k3(out, g, eps, name, K, N, M, ZOO_ARCH)
     torch.cuda.empty_cache()
-
     # K4: the untied head read as stored, then an odd vocabulary's head
     internvl = configs.get("internvl2-2b")
-    for tag, Dh, Vh, route, run in (
-            ("head/w", D, V, "tma", ZOO_ARCH),
+    for tag, Dh, Vh, run in (
+            ("head/w", D, V, ZOO_ARCH),
             ("internvl2-2b head/w", internvl.d_model, internvl.vocab,
-             "thread", "internvl2-2b")):
-        h = torch.randn((B, S, Dh), generator=g, device=dev, dtype=bf)
-        w = (torch.randn((Dh, Vh), generator=g, device=dev, dtype=bf)
-             * Dh ** -0.5)
-        for c in fmm.route_counters.values():
-            c.launches = 0
-        got = fmm.pmatmul(h, w, w_seed, eps, True)
-        routes = {n: c.launches for n, c in fmm.route_counters.items()}
-        if routes != {"tma": int(route == "tma"),
-                      "thread": int(route == "thread")}:
-            raise SystemExit(f"zoo: K4 on {tag} ({Dh}, {Vh}) loaded by "
-                             f"{routes}, want the {route} route")
-        err = close(got, fref.pmatmul(h, w, w_seed, eps, True),
-                    f"pmatmul {tag}")
-        del got
-        zoo_row(out, "pmatmul", f"{tag}: h ({B}, {S}, {Dh}) @ W ({Dh}, "
-                f"{Vh}), trans=False, {route} route", run,
-                lambda: fmm.pmatmul(h, w, w_seed, eps, True),
-                lambda: fref.pmatmul(h, w, w_seed, eps, True),
-                lambda: torch.matmul(h, w), err, CLOSE_TOL,
-                (h.numel() + w.numel() + M * Vh) * 2,
-                flops=2.0 * M * Dh * Vh, insns=Dh * Vh * RNG_OPS, reps=10)
-        del h, w
+             "internvl2-2b")):
+        zoo_k4(out, g, eps, tag, B, S, Dh, Vh, run)
         torch.cuda.empty_cache()
 
     # K1: head/w's update sweep, one always-on row of D * V elements
@@ -2094,6 +2453,56 @@ def zoo_parity(cfg, eps):
     del got, want
     torch.cuda.empty_cache()
     return out
+
+
+def zoo_dense_parity(out, eps):
+    """K2, K3 and K4 against their plain versions at the shapes the
+    ``ZOO_DENSE`` runs give them (B 16, S 63, the +-eps pair), appended to
+    ``out``: K3 at each distinct (K, N) of a config's layer
+    (``fmm.model_matmuls``), K4 at each head read as stored (internvl2-
+    2b's is a ``zoo_parity`` row), K2 at codeqwen1.5-7b's and musicgen-
+    large's multi-head attention (a KV head a query head).  A shape an
+    earlier config gave is timed once: its row is repeated under the
+    later config's run."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.fused import matmul as fmm
+
+    g = torch.Generator(device="cuda").manual_seed(2121)
+    B, S = 16, 63
+    seen = {}
+
+    def once(kernel, K, N, run, label, timed):
+        key = kernel, K, N
+        if key in seen:
+            row = seen[key]
+            out[kernel].append({**row, "run": run, "shape": f"{label}: "
+                                + row["shape"].split(": ", 1)[1]})
+            log(f"[zoo] {kernel} {out[kernel][-1]['shape']}: as timed for "
+                f"{row['run']}")
+            return
+        timed()
+        seen[key] = out[kernel][-1]
+    for arch in ZOO_DENSE:
+        c = configs.get(arch)
+        layer, (Dh, Vh) = fmm.model_matmuls(c)
+        names = ["wq", "wk", "wv", "wo"] + (
+            ["wg", "wu", "wd"] if len(layer) == 7 else ["wi", "wd"])
+        by_shape = {}
+        for name, kn in zip(names, layer):
+            by_shape.setdefault(kn, []).append(name)
+        for (K, N), ns in by_shape.items():
+            label = f"{arch} {', '.join(ns)}"
+            once("pmatmul_stack", K, N, arch, label, lambda: zoo_k3(
+                out, g, eps, label, K, N, B * S, arch))
+        torch.cuda.empty_cache()
+        if arch != "internvl2-2b":
+            label = f"{arch} head/w"
+            once("pmatmul", Dh, Vh, arch, label, lambda: zoo_k4(
+                out, g, eps, label, B, S, Dh, Vh, arch))
+            torch.cuda.empty_cache()
+        if c.n_kv_heads == c.n_heads:
+            zoo_k2(out, g, B, S, c.n_kv_heads, 1, c.head_dim, arch)
 
 
 def zoo_train(tag, spec, cfg=None, train_data=None):
@@ -2131,20 +2540,62 @@ def zoo_train(tag, spec, cfg=None, train_data=None):
     return hist, launches, peak
 
 
+def zoo_dense_run(arch):
+    """``arch`` at its published depth and full width through
+    ``api.run``: TRACE_WARM + ZOO_STEADY steps of the main path's spec
+    with LeZO's n_drop from the preset's sparsity (stub embeddings for an
+    audio or vision frontend), gated as ``zoo_train`` gates and on every
+    step's active layers; then the device time, idle share and kernels a
+    step over ZOO_WINDOW more steps (``measure_window``).  Returns the
+    run's launches."""
+    import torch
+    from repro_torch import api
+    from repro_torch.data import synthetic
+    from repro_torch.models import frontends
+
+    sp = zoo_spec(arch, **{"run.steps": TRACE_WARM + ZOO_STEADY})
+    d = api.derive(sp)
+    cfg, L = d.model_cfg, d.model_cfg.num_layers
+    data = None
+    if frontends.uses_embeds(cfg):
+        data = synthetic.make_dataset(d.task, 64)
+        data["embeds"] = frontends.stub_embeddings(
+            cfg, *data["tokens"].shape, seed=1).float().cpu().numpy()
+    hist, launches, peak = zoo_train(f"zoo {arch}", sp, train_data=data)
+    active = hist["active_layers"]
+    if (d.n_drop != int(sp.optimizer.sparsity * L)
+            or active != [L - d.n_drop] * sp.run.steps):
+        raise SystemExit(f"zoo: {arch} n_drop {d.n_drop}, active layers "
+                         f"{active}; want {L - int(0.75 * L)} of {L}")
+    params = hist["final_params"]
+    secs = hist["step_seconds"][TRACE_WARM:]
+    del hist
+    win = measure_window(f"zoo {arch}", step_fn(sp, cfg, params),
+                         ZOO_WINDOW, start=sp.run.steps)
+    log(f"[zoo] {arch} ({L} layers, {d.n_drop} dropped a step) "
+        f"{smi('name,power.limit')}: {ZOO_STEADY} steady steps: "
+        f"step_seconds {stats(secs)}; device {win['busy'] / ZOO_WINDOW:.4f}"
+        f" s a step, idle share {win['idle']:.4f}, {win['kernels']} "
+        f"kernels a step; peak memory {peak:.2f} GiB")
+    del params, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_zoo(eps):
     """The dense model zoo on the card (see the module docstring); returns
     the ``zoo_shapes`` rows by kernel, each carrying the kernel's
     launches in the zoo run that exercises its shape (``run``: Qwen3-14B's
-    4 steps, its lockstep generate, internlm2-1.8b's or internvl2-2b's
-    cut run, deepseek-coder-33b's full-depth run)."""
+    4 steps, its lockstep generate, a ``ZOO_DENSE`` config's run,
+    deepseek-coder-33b's)."""
     import statistics
 
     import torch
     from repro_torch import api, configs, obs, serving
-    from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attn as kfa
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import frontends, lm
+    from repro_torch.models import lm
 
     cfg = configs.get(ZOO_ARCH)
     rows = zoo_parity(cfg, eps)
@@ -2164,7 +2615,7 @@ def phase_zoo(eps):
         raise SystemExit(f"zoo: {ZOO_ARCH} virtual against materialized "
                          "probes outside the check phase's gates")
 
-    # 20 steady steps, telemetry off; idle share; a profiled step
+    # TRACE_STEPS steady steps, telemetry off; idle share; a profiled step
     steady = api.with_overrides(spec, {"run.steps": TRACE_WARM + TRACE_STEPS})
     hist, n, peak = run_counted(f"zoo {ZOO_ARCH} steady", steady, params)
     check_launches(f"zoo {ZOO_ARCH} steady", steady, params, n)
@@ -2276,25 +2727,10 @@ def phase_zoo(eps):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the other dense configs at full width, cut in depth
-    for arch in ZOO_OTHERS:
-        full = configs.get(arch)
-        cut = dataclasses.replace(full, stages=(dataclasses.replace(
-            full.stages[0], repeat=ZOO_DEPTH),))
-        sp = zoo_spec(arch, **{"run.steps": 2})     # LeZO's drop at the cut
-        sp = api.with_overrides(sp, {"optimizer.n_drop": int(
-            sp.optimizer.sparsity * ZOO_DEPTH)})
-        data = None
-        if frontends.uses_embeds(cut):
-            data = synthetic.make_dataset(api.derive(sp).task, 64)
-            data["embeds"] = frontends.stub_embeddings(
-                cut, *data["tokens"].shape, seed=1).float().cpu().numpy()
-        hist, runs[arch], peak = zoo_train(
-            f"zoo {arch} cut to {ZOO_DEPTH} of {full.num_layers} layers",
-            sp, cfg=cut, train_data=data)
-        del hist, data
-        gc.collect()
-        torch.cuda.empty_cache()
+    # the other dense configs at their published depth and full width
+    zoo_dense_parity(rows, eps)
+    for arch in ZOO_DENSE:
+        runs[arch] = zoo_dense_run(arch)
 
     # deepseek-coder-33b at full width and depth on the one card
     hist, runs[ZOO_BIG], peak = zoo_train(
@@ -2317,7 +2753,7 @@ def phase_zoo(eps):
 # (deepseek-v2-lite) and at granite-moe's GQA dh = 64, G = 2.
 MOE_ARCHS = ("deepseek-v2-lite-16b", "granite-moe-1b-a400m")
 MOE_MLA, MOE_GRANITE = MOE_ARCHS
-MOE_STEADY = 10                          # steady steps after TRACE_WARM
+MOE_STEADY = 5                           # steady steps after TRACE_WARM
 MOE_DROPLESS = 4.0                       # the reference's dropless factor
 MOE_CHECK = (0, 1)                       # against lockstep at batch 1
 
@@ -2450,9 +2886,10 @@ def seeded_train(tag, spec, cfg=None, regions=None):
     """``spec`` on its model, or on a depth-cut ``cfg`` through its
     ``Trainer``: 4 steps from the seed twice (launches as
     ``expected_launches`` reckons, finite losses; the two runs' losses,
-    projected gradients and final parameters bit-equal), then 2 + 10
-    steady steps, the idle share over 10 and a profiled step with device
-    time by op (and by the ``record_function`` labels of ``regions``).
+    projected gradients and final parameters bit-equal), then 2 +
+    MOE_STEADY steady steps, the idle share over as many and a profiled
+    step with device time by op (and by the ``record_function`` labels
+    of ``regions``).
     Returns (cfg, params, launches of the first run)."""
     import torch
     from repro_torch import api
@@ -3765,7 +4202,7 @@ def phase_swarm(full):
     return parity
 
 
-MESH_STEPS, MESH_WARM, MESH_STEADY = 4, 2, 10
+MESH_STEPS, MESH_WARM, MESH_STEADY = 4, 2, 5
 MESH_SPLITS = (2, 4, 8, 16)
 MESH_PEAK_GATE = 0.10         # predicted peak within +-10 % of measured
 MESH_USEFUL_GATE = 1.05
@@ -3985,7 +4422,8 @@ def mesh_engine(cfg, mesh, params):
 MESH_ZOO = ("deepseek-v2-lite-16b", "granite-moe-1b-a400m",
             "jamba-v0.1-52b")
 MESH_ZOO_STEPS = 3
-MESH_ZOO_LOCKSTEP = (4, 128, 4)     # jamba: batch, prompt, new tokens
+MESH_ZOO_LOCKSTEP = (4, 128, 4)     # batch, prompt, new tokens
+MESH_ZOO_SERVED = ("deepseek-v2-lite-16b", "jamba-v0.1-52b")  # lockstep
 MESH_ZOO_REQUESTS = 4               # granite's engine: requests, none shared
 MESH_ZOO_NEW = 8                    # new tokens a request
 
@@ -4010,7 +4448,8 @@ def mesh_zoo_run(tag, cfg, zcfg, batch, mesh):
     """``MESH_ZOO_STEPS`` steps of ``make_zo_step`` on ``cfg``'s weights
     from the seed, plain (``mesh`` None) or over the 1 x 1 mesh, the
     launch counters and ``ctx.ROUTES`` zeroed just before and read just
-    after; then one more step profiled.  Returns the run's readings and
+    after; then PROFILE_STEPS more steps in a profiled window (kernel
+    activity only).  Returns the run's readings and
     its parameters."""
     import statistics
     import torch
@@ -4036,9 +4475,12 @@ def mesh_zoo_run(tag, cfg, zcfg, batch, mesh):
            "routes": routes, "digest": params_digest(params),
            "wall": statistics.median(walls[1:]),
            "leaves": len(zo.leaf_items(params))}
-    out["prof_wall"], out["device"], out["kernels"] = profile_one(
-        f"mesh {tag}", lambda: step(params, batch, MESH_ZOO_STEPS, 0xC0FFEE),
-        "one more step")
+    win = measure_window(f"mesh {tag}", lambda t: step(
+        params, batch, t, 0xC0FFEE), PROFILE_STEPS, start=MESH_ZOO_STEPS,
+        warm=0)
+    out["prof_wall"], out["device"] = (win["wall"] / win["steps"],
+                                       win["busy"] / win["steps"])
+    out["kernels"] = win["kernels"]
     ctx.set_mesh(None)
     return out, params
 
@@ -4088,9 +4530,11 @@ def mesh_zoo_lockstep(tag, cfg, params, mesh):
     """A lockstep prefill (``MESH_ZOO_LOCKSTEP``) and greedy decode
     steps, plain (``lm.prefill``/``serve_step``) or over ``mesh``
     (``specs.build_prefill_step``/``build_serve_step``: the caches placed
-    by ``cache_pspec``, Mamba's on their channels), the counters zeroed
-    just before and read just after: (logits by step, tokens, launches,
-    routes)."""
+    by ``cache_pspec``, Mamba's on their channels, attention's K/V and
+    MLA's latent on the sequence), the counters zeroed just before and
+    read just after; then the same run twice more in a profiled window.
+    Returns the logits by step, the tokens, launches, routes, wall, peak
+    and device seconds."""
     import torch
     from repro_torch.distributed import ctx, sharding
     from repro_torch.launch import specs
@@ -4122,10 +4566,14 @@ def mesh_zoo_lockstep(tag, cfg, params, mesh):
     ctx.ROUTES.clear()
     (logits, got), n, peak, wall = counted(run)
     routes = dict(ctx.ROUTES)
+    win = measure_window(f"mesh {tag} lockstep", lambda i: run(), 2, warm=0)
     ctx.set_mesh(None)
     log(f"[mesh] {tag} lockstep ({Bl}, {Sl}) + {Gl - 1} decode steps: "
-        f"{wall:.3f} s, peak {peak:.2f} GiB, launches {n}, routes {routes}")
-    return logits, got, n, routes
+        f"{wall:.3f} s, device {win['busy'] / 2:.4f} s, peak {peak:.2f} "
+        f"GiB, launches {n}, routes {routes}")
+    return {"logits": logits, "tokens": got, "launches": n,
+            "routes": routes, "wall": wall, "peak": peak,
+            "device": win["busy"] / 2}
 
 
 def mesh_zoo_engine(cfg, mesh):
@@ -4188,7 +4636,7 @@ def mesh_zoo(mesh):
     v2-lite and granite-moe at full width and depth, jamba at full width
     and the deepest depth in ``SSM_PERIODS`` whose mesh run and lockstep
     fit; each bit-equal to the plain run from the same seed (then
-    granite's engine, jamba's lockstep)."""
+    granite's engine, deepseek's and jamba's lockstep)."""
     import torch
     from repro_torch import configs
     from repro_torch.distributed import ctx
@@ -4206,7 +4654,7 @@ def mesh_zoo(mesh):
                 mesh_out, params = mesh_zoo_run(f"{arch} mesh", cfg, zcfg,
                                                 batch, mesh)
                 lock = (mesh_zoo_lockstep(f"{arch} mesh", cfg, params, mesh)
-                        if periods else None)
+                        if arch in MESH_ZOO_SERVED else None)
             except torch.cuda.OutOfMemoryError as e:
                 if periods is None or periods == depths[-1]:
                     raise
@@ -4225,23 +4673,30 @@ def mesh_zoo(mesh):
         torch.cuda.empty_cache()
         plain, params = mesh_zoo_run(f"{arch} plain", cfg, zcfg, batch, None)
         mesh_zoo_compare(tag, cfg, zcfg, plain, mesh_out)
-        if periods:
+        if lock:
             want = mesh_zoo_lockstep(f"{arch} plain", cfg, params, None)
             k2 = {"zo_axpy_2d": 0, "flash_attention": attention_layers(cfg),
                   "pmatmul_stack": 0, "pmatmul": 0}
-            same = (len(lock[0]) == len(want[0]) and all(
-                torch.equal(a, b) for a, b in zip(lock[0], want[0]))
-                and torch.equal(lock[1], want[1]))
+            routes = mesh_zoo_routes(cfg, MESH_ZOO_LOCKSTEP[2])
+            same = (len(lock["logits"]) == len(want["logits"]) and all(
+                torch.equal(a, b)
+                for a, b in zip(lock["logits"], want["logits"]))
+                and torch.equal(lock["tokens"], want["tokens"]))
             log(f"[mesh] {tag} lockstep over the 1 x 1 mesh vs plain: "
-                f"logits of {len(want[0])} steps and tokens bit-equal "
-                f"{same}; K2 launches {lock[2]} / {want[2]} (reckoned "
-                f"{k2}); routes {lock[3]} (reckoned "
-                f"{mesh_zoo_routes(cfg, MESH_ZOO_LOCKSTEP[2])})")
+                f"logits of {len(want['logits'])} steps and tokens "
+                f"bit-equal {same}; K2 launches {lock['launches']} / "
+                f"{want['launches']} (reckoned {k2}); routes "
+                f"{lock['routes']} (reckoned {routes})")
+            log(f"[mesh] {tag} lockstep {smi('name,power.limit')}: wall "
+                f"{lock['wall']:.4f} / {want['wall']:.4f} s (x"
+                f"{lock['wall'] / want['wall']:.2f}), device "
+                f"{lock['device']:.4f} / {want['device']:.4f} s, peak "
+                f"{lock['peak']:.2f} / {want['peak']:.2f} GiB, mesh / plain")
             if not same:
                 raise SystemExit(f"mesh: {tag} lockstep over the 1 x 1 "
                                  "mesh is not the plain one bit for bit")
-            if (lock[2] != k2 or want[2] != k2 or lock[3] != mesh_zoo_routes(
-                    cfg, MESH_ZOO_LOCKSTEP[2]) or want[3]):
+            if (lock["launches"] != k2 or want["launches"] != k2
+                    or lock["routes"] != routes or want["routes"]):
                 raise SystemExit(f"mesh: {tag} lockstep launches or routes "
                                  "off the reckoning")
         del params, plain, mesh_out, lock
@@ -4284,7 +4739,6 @@ def phase_mesh(eps):
     import statistics
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeCfg
     from repro_torch.core import zo
@@ -4343,21 +4797,14 @@ def phase_mesh(eps):
                              f"reckoned {want}")
 
         # 2. steady mesh steps: wall, device time, idle share, peak
-        mesh_run("mesh warm", step, params, placed, MESH_WARM,
+        mesh_run("mesh warm", step, params, placed, MESH_WARM - WINDOW_WARM,
                  start=MESH_STEPS)
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, _, walls = mesh_run("mesh steady", step, params, placed,
-                                   MESH_STEADY,
-                                   start=MESH_STEPS + MESH_WARM)
+        win = measure_window("mesh steady", lambda t: mesh_run(
+            "mesh steady", step, params, placed, 1, start=t),
+            MESH_STEADY, start=MESH_STEPS + MESH_WARM - WINDOW_WARM)
         peak = torch.cuda.max_memory_allocated()
-        busy = 0.0
-        for e in prof.key_averages():
-            if str(e.device_type).endswith("CUDA"):
-                us = getattr(e, "self_device_time_total", None)
-                busy += (e.self_cuda_time_total if us is None else us) / 1e6
-        if busy == 0:
-            raise SystemExit("mesh: the profile holds no device time")
+        busy, walls = win["busy"], win["walls"]
         dev_s = busy / MESH_STEADY
         wall = statistics.median(walls)
         plain_wall = statistics.median(pl_walls[MESH_WARM:])
@@ -4425,7 +4872,7 @@ def phase_mesh(eps):
             "pmatmul": [r for r in rows if r["matrix"][:4] == "head"]}
 
 
-TRACE_STEPS, TRACE_WARM = 20, 2     # steady steps, warm-up steps
+TRACE_STEPS, TRACE_WARM = 10, 2     # steady steps, warm-up steps
 
 
 def expected_tiles(cfg, spec, layer_sels):
@@ -4457,30 +4904,13 @@ def stats(xs):
 
 
 def device_idle_share(spec, cfg, params, steps):
-    """torch.profiler (CUDA kernel activity only) over ``steps`` steady
-    steps of the main path's step function after one warm step: device
-    busy seconds (sum of kernel times), host wall seconds around the
-    steps, and the idle share 1 - busy / wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    run = step_fn(spec, cfg, params)
-    run(1000)                                            # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for i in range(steps):
-            run(1001 + i)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    busy = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            busy += (e.self_cuda_time_total if us is None else us) / 1e6
-    if busy == 0:
-        raise SystemExit("trace: the profile holds no device time")
-    return busy, wall, 1 - busy / wall
+    """``measure_window`` over ``steps`` steady steps of the main path's
+    step function after one warm step: device busy seconds (sum of
+    kernel times), host wall seconds around the steps, and the idle
+    share 1 - busy / wall."""
+    win = measure_window("idle share", step_fn(spec, cfg, params), steps,
+                         start=1000)
+    return win["busy"], win["wall"], win["idle"]
 
 
 def phase_trace(hold, cfg):
@@ -4661,8 +5091,9 @@ SOURCES = {
 
 
 PHASES = ("build", "rng", "parity", "train", "check", "profile", "trace",
-          "replay", "estimators", "momentum", "tasks", "peft", "serve", "zoo",
-          "moe", "ssm", "modes", "fo", "resume", "swarm", "mesh")
+          "replay", "estimators", "mezo", "momentum", "tasks", "peft",
+          "serve", "zoo", "moe", "ssm", "modes", "fo", "resume", "swarm",
+          "mesh")
 
 
 def main() -> int:
@@ -4688,22 +5119,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import api
 
-    t0 = time.perf_counter()
+    t0 = last = time.perf_counter()
+
+    def lap(name):                   # each phase's seconds, as it ends
+        nonlocal last
+        log(f"[time] {name} {time.perf_counter() - last:.1f} s")
+        last = time.perf_counter()
+
     spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
     cfg = api.derive(spec).model_cfg
     rows, launches = {}, {}
     k1_sass = phase_build() if "build" in phases else None
+    lap("build")
     if "rng" in phases:
         phase_rng()
+        lap("rng")
     if "parity" in phases:
         rows = phase_parity(cfg, spec.optimizer.eps, k1_sass)
+        lap("parity")
     hold = {}                        # the full-size weights, built once
     if "train" in phases:
         spec, cfg, hold["params"], launches = phase_train()
+        lap("train")
     if "check" in phases:
         phase_check(spec, cfg, hold["params"])
+        lap("check")
     if "profile" in phases:
         phase_profile(spec, cfg, hold["params"])
+        lap("profile")
     if "trace" in phases:
         from repro_torch.train.trainer import load_host_
         held = phase_trace(hold, cfg)
@@ -4716,45 +5159,62 @@ def main() -> int:
         del held
         gc.collect()
         torch.cuda.empty_cache()
+        lap("trace")
     if "estimators" in phases:
         phase_estimators(hold, cfg)
+        lap("estimators")
+    if "mezo" in phases:
+        phase_mezo(hold, cfg)
+        lap("mezo")
     if "momentum" in phases:
         phase_momentum(hold, cfg)
+        lap("momentum")
     if "tasks" in phases:
         phase_tasks(hold, cfg)
+        lap("tasks")
     if "peft" in phases:
         phase_peft(hold, cfg)
+        lap("peft")
     if "serve" in phases:
         rows.setdefault("flash_attention", {})["serve_shapes"] = \
             phase_serve(hold, cfg)
+        lap("serve")
     hold.clear()                     # the zoo and FO build their own weights
     gc.collect()
     torch.cuda.empty_cache()
     if "zoo" in phases:
         for name, shapes in phase_zoo(spec.optimizer.eps).items():
             rows.setdefault(name, {})["zoo_shapes"] = shapes
+        lap("zoo")
     if "moe" in phases:
         for name, shapes in phase_moe(spec.optimizer.eps).items():
             rows.setdefault(name, {})["moe_shapes"] = shapes
+        lap("moe")
     if "ssm" in phases:
         for name, shapes in phase_ssm(spec.optimizer.eps).items():
             rows.setdefault(name, {})["ssm_shapes"] = shapes
+        lap("ssm")
     if "modes" in phases:
         for name, shapes in phase_modes(spec.optimizer.eps).items():
             rows.setdefault(name, {})["modes_shapes"] = shapes
+        lap("modes")
     if "fo" in phases:
         phase_fo(cfg)
+        lap("fo")
     if "resume" in phases:
         phase_resume()
+        lap("resume")
     if "swarm" in phases:
         parity = phase_swarm(api.with_overrides(api.preset("lezo-opt13b"), {
             **MAIN_OVERRIDES, "run.steps": SWARM_STEPS,
             "swarm.workers": 2}))
         for name, shapes in parity.items():
             rows.setdefault(name, {})["swarm_shapes"] = shapes
+        lap("swarm")
     if "mesh" in phases:
         for name, shapes in phase_mesh(spec.optimizer.eps).items():
             rows.setdefault(name, {})["mesh_shapes"] = shapes
+        lap("mesh")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = rows.get(name, {})
@@ -4767,6 +5227,14 @@ def main() -> int:
                         **{k: v for k, v in r.items() if k not in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "tolerance")}})
+    lost = WINDOWS["lost"]
+    if lost:
+        log(f"[windows] {len(lost)} windows whole, {WINDOWS['refused']} "
+            "refused and measured again; fills lost of "
+            f"{WINDOW_EDGE} at the opening edge: at most "
+            f"{max(a for a, _ in lost)} ({sum(a > 0 for a, _ in lost)} "
+            f"windows lost any), at the closing edge: at most "
+            f"{max(b for _, b in lost)} ({sum(b > 0 for _, b in lost)})")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi("name,power.limit"))

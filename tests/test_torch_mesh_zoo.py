@@ -226,9 +226,10 @@ def one_rank(tmp):
                 np.array_equal(got[k], want[k]) for k in want))
         np.savez(os.path.join(tmp, f"{case}.mesh11.npz"), **got)
         if case in LOCKSTEP:
-            cfg, params, _, _ = load(tmp, case)
-            out[case]["lockstep"] = lockstep(
-                cfg, params, torch.as_tensor(data["prompt"]), None)
+            for tag, m in (("lockstep", None), ("lockstep_mesh", mesh)):
+                cfg, params, _, _ = load(tmp, case)
+                out[case][tag] = lockstep(
+                    cfg, params, torch.as_tensor(data["prompt"]), m)
         if case == "granite-moe-1b-a400m":
             cfg, params, _, _ = load(tmp, case)
             out[case]["engine"] = {"plain": engine(cfg, params, None),
@@ -482,6 +483,25 @@ def test_two_by_two_mesh_matches_reference_single_device(runs, case):
     assert got["routes"] == _tp_routes(case, 2 * STEPS)
     _within(got["mesh"], dict(np.load(tmp / f"{case}.mesh22.npz")),
             ref["losses"], ref["leaves"])
+
+
+@pytest.mark.parametrize("case", LOCKSTEP + PLAIN_LOCKSTEP)
+def test_one_by_one_lockstep_is_bit_equal_to_plain(runs, case):
+    """The lockstep prefill and greedy decode over the 1 x 1 mesh (the
+    caches placed by ``cache_pspec``: attention's K/V and MLA's ``ckv``
+    and ``kr`` on the sequence, written by ``ctx.write_seq``) against the
+    plain ``prefill``/``serve_step``: every step's logits and the greedy
+    tokens bit for bit, each MoE and Mamba layer on the TP route once a
+    step, the plain run on none."""
+    got = runs[2][case]
+    mesh, plain = got["lockstep_mesh"], got["lockstep"]
+    assert mesh["tokens"] == plain["tokens"]
+    assert len(mesh["logits"]) == len(plain["logits"]) == GEN
+    for a, b in zip(mesh["logits"], plain["logits"]):
+        assert np.array_equal(np.asarray(a, np.float32),
+                              np.asarray(b, np.float32))
+    assert mesh["routes"] == _tp_routes(case, GEN)
+    assert not plain["routes"]
 
 
 @pytest.mark.parametrize("case", LOCKSTEP + PLAIN_LOCKSTEP)

@@ -10,11 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro import api as japi
+from repro import configs as jconfigs
 from repro.configs import opt as jopt
 from repro.core import zo as jzo
 from repro.models import lm as jlm
+from repro_torch import api as tapi
+from repro_torch import configs as tconfigs
 from repro_torch.configs import opt as topt
 from repro_torch.core import zo as tzo
+from repro_torch.launch import specs as tspecs
 from repro_torch.models import lm as tlm
 
 torch.set_num_threads(2)              # six xdist workers share the CPUs
@@ -110,3 +115,41 @@ def test_tree_axpy_bf16_masked_rows_untouched():
             assert not torch.equal(p[m], before[n][m])
         else:
             assert not torch.equal(p, before[n])
+
+
+# (arch, published layers, LeZO's n_drop at the preset's sparsity 0.75)
+PUBLISHED = [("codeqwen1.5-7b", 32, 24), ("internlm2-1.8b", 24, 18),
+             ("musicgen-large", 48, 36), ("internvl2-2b", 24, 18),
+             ("deepseek-v2-lite-16b", 27, 20)]
+
+
+@pytest.mark.parametrize("arch,layers,n_drop", PUBLISHED,
+                         ids=[a for a, _, _ in PUBLISHED])
+def test_stratified_select_at_published_depth(arch, layers, n_drop):
+    """LeZO's selection on each config at its published depth, width and
+    stage pattern (shapes only: ``jax.eval_shape`` of the reference's
+    init, the port's meta parameters), at the n_drop each package
+    derives from the preset: masks and active indices bit for bit over
+    16 seeds."""
+    over = {"model.arch": arch, "model.variant": "full"}
+    jd = japi.derive(japi.with_overrides(japi.preset("lezo-opt13b"), over))
+    td = tapi.derive(tapi.with_overrides(tapi.preset("lezo-opt13b"), over))
+    assert jd.n_drop == td.n_drop == n_drop
+    jc, tc = jconfigs.get(arch, "full"), tconfigs.get(arch, "full")
+    js = jzo.build_spec(jax.eval_shape(lambda k: jlm.init_params(jc, k),
+                                       jax.random.PRNGKey(0)),
+                        jlm.zo_group_fn)
+    ts = tzo.build_spec(tspecs.param_specs(tc), tlm.zo_group_fn)
+    assert js.slices == ts.slices and ts.num_layers == layers
+    assert js.quotas(n_drop) == ts.quotas(n_drop)
+    strat = jax.jit(lambda s: jzo.stratified_select(js, s, n_drop)[:2])
+    r = np.random.default_rng(layers)
+    for seed, step in zip(r.integers(0, 2 ** 32, 16).tolist(),
+                          r.integers(0, 10 ** 6, 16).tolist()):
+        s = jzo.rng.fold_py(seed, step)
+        jm, ji = strat(jnp.uint32(s))
+        tm, ti, tn = tzo.stratified_select(ts, s, n_drop)
+        assert tn == layers - n_drop
+        for g in js.slices:
+            assert np.array_equal(np.asarray(jm[g]), tm[g].numpy())
+            assert np.array_equal(np.asarray(ji[g]), ti[g].numpy())
