@@ -25,6 +25,7 @@ from repro_torch.estimators.base import (DirectionSet, Estimator,
 from repro_torch.estimators.importance import ImportanceSelect
 from repro_torch.estimators.one_sided import OneSidedBatched
 from repro_torch.estimators.two_point import TwoPointSPSA
+from repro_torch.obs import trace as obs
 
 REGISTRY = {
     "two_point": TwoPointSPSA,
@@ -76,23 +77,24 @@ def make_step(loss_fn: Callable, spec: zo.ZOSpec, cfg: EstimatorConfig,
     sched = lr_schedule or (lambda t: cfg.lr)
 
     def step(params, state, batch, step_idx: int, base_seed: int):
-        seed = rng.fold_py(base_seed, step_idx)
-        params, dirs, metrics = est.estimate(loss_fn, params, batch, seed,
-                                             state)
-        lr = sched(step_idx)
-        est.apply_update(params, dirs, lr, 1.0 - lr * cfg.weight_decay)
-        state = est.update_state(state, dirs, metrics)
-        metrics = dict(metrics, lr=lr, seed=seed)
-        if len(dirs):
-            metrics["coeffs"] = np.array(dirs.coeffs, np.float32)
-            shapes = zo.leaf_shapes(params)
-            metrics["n_active_params"] = np.array(
-                [zo.active_param_count(spec, shapes, m) for m in dirs.masks],
-                np.float32)
-            if spec.num_layers:
-                metrics["layer_sel"] = sum(
-                    zo.global_layer_mask(spec, m).to(torch.int32)
-                    for m in dirs.masks).numpy()
-        return params, state, metrics
+        with obs.prange(obs.ZO_STEP):
+            seed = rng.fold_py(base_seed, step_idx)
+            params, dirs, metrics = est.estimate(loss_fn, params, batch,
+                                                 seed, state)
+            lr = sched(step_idx)
+            est.apply_update(params, dirs, lr, 1.0 - lr * cfg.weight_decay)
+            state = est.update_state(state, dirs, metrics)
+            metrics = dict(metrics, lr=lr, seed=seed)
+            if len(dirs):
+                metrics["coeffs"] = np.array(dirs.coeffs, np.float32)
+                shapes = zo.leaf_shapes(params)
+                metrics["n_active_params"] = np.array(
+                    [zo.active_param_count(spec, shapes, m)
+                     for m in dirs.masks], np.float32)
+                if spec.num_layers:
+                    metrics["layer_sel"] = sum(
+                        zo.global_layer_mask(spec, m).to(torch.int32)
+                        for m in dirs.masks).numpy()
+            return params, state, metrics
 
     return step, est.init_state

@@ -75,9 +75,10 @@ class DirectionSet:
 def host_f32(x) -> np.float32:
     """A loss (0-dim tensor or float) as a float32 host scalar; a DTensor
     loss (a mesh step) is reduced over its partial placements first."""
-    if is_dtensor(x):
-        x = x.full_tensor()
-    return np.float32(x.item() if hasattr(x, "item") else x)
+    with obs.prange(obs.ZO_READBACK):
+        if is_dtensor(x):
+            x = x.full_tensor()
+        return np.float32(x.item() if hasattr(x, "item") else x)
 
 
 def direction_seeds(seed: int, q: int) -> Tuple[int, ...]:
@@ -106,12 +107,13 @@ class Estimator:
     def select(self, seed: int, state=None):
         """-> (masks {g: (L_g,) bool}, idxs {g: (k_g,) int64} | None,
         n_active)."""
-        if self._select is not None:
-            sel = self._select(seed, state)
-        elif self.cfg.policy == "stratified":
-            sel = zo.stratified_select(self.spec, seed, self.cfg.n_drop)
-        else:
-            sel = zo.uniform_select(self.spec, seed, self.cfg.n_drop)
+        with obs.prange(obs.ZO_SELECT):
+            if self._select is not None:
+                sel = self._select(seed, state)
+            elif self.cfg.policy == "stratified":
+                sel = zo.stratified_select(self.spec, seed, self.cfg.n_drop)
+            else:
+                sel = zo.uniform_select(self.spec, seed, self.cfg.n_drop)
         tr = obs.get_tracer()
         if tr.enabled and not obs.tracing():
             tr.count(obs.CTR_SELECTS)

@@ -41,6 +41,7 @@ import torch
 from repro_torch.distributed.ctx import is_dtensor, tp_apply
 from repro_torch.fused import ref as fref
 from repro_torch.kernels import _build
+from repro_torch.obs import trace as obs
 
 
 stack_counter = _build.Counter()     # K3 launches (one per probe group)
@@ -194,16 +195,17 @@ def pmatmul(x, w, seed: int, scale, active=True, *, trans=False, ld=None,
     if is_dtensor(w):
         return _sharded(pmatmul, x, w, seed, scale, active, trans=trans,
                         ld=ld, row_off=row_off, col_off=col_off)
-    if x.device.type != "cuda":
-        with _build.plain_region("pmatmul", *cost(x, w, 1, int(active))):
-            if x.device.type == "meta":  # shapes only: nothing to compute
-                return x.new_empty((*x.shape[:-1], w.shape[1]))
-            return fref.pmatmul(x, w, seed, scale, active, trans=trans,
-                                ld=ld, row_off=row_off, col_off=col_off)
-    out = _launch(x[None], w, (seed,), (scale,), (bool(active),),
-                  trans=trans, ld=ld, row_off=row_off, col_off=col_off)
-    single_counter.launches += 1
-    return out[0]
+    with obs.prange(obs.KERNEL_K34):
+        if x.device.type != "cuda":
+            with _build.plain_region("pmatmul", *cost(x, w, 1, int(active))):
+                if x.device.type == "meta":  # shapes only: nothing to do
+                    return x.new_empty((*x.shape[:-1], w.shape[1]))
+                return fref.pmatmul(x, w, seed, scale, active, trans=trans,
+                                    ld=ld, row_off=row_off, col_off=col_off)
+        out = _launch(x[None], w, (seed,), (scale,), (bool(active),),
+                      trans=trans, ld=ld, row_off=row_off, col_off=col_off)
+        single_counter.launches += 1
+        return out[0]
 
 
 def pmatmul_stack(x, w, seeds, scales, active, *, trans=False, ld=None,
@@ -212,39 +214,40 @@ def pmatmul_stack(x, w, seeds, scales, active, *, trans=False, ld=None,
     if is_dtensor(w):
         return _sharded(pmatmul_stack, x, w, seeds, scales, active,
                         trans=trans, ld=ld, row_off=row_off, col_off=col_off)
-    if x.device.type != "cuda":
-        n_on = len({s for s, a in zip(seeds, active) if a})
-        with _build.plain_region("pmatmul_stack",
-                                 *cost(x, w, len(seeds), n_on)):
-            if x.device.type == "meta":  # shapes only: nothing to compute
-                return x.new_empty((*x.shape[:-1], w.shape[1]))
-            return fref.pmatmul_stack(x, w, seeds, scales, active,
-                                      trans=trans, ld=ld, row_off=row_off,
-                                      col_off=col_off)
-    seeds, scales = tuple(seeds), tuple(scales)
-    active = tuple(bool(a) for a in active)
-    kw = dict(trans=trans, ld=ld, row_off=row_off, col_off=col_off)
-    P = x.shape[0]
-    if P <= 2:
-        out = _launch(x, w, seeds, scales, active, **kw)
-        stack_counter.launches += 1
+    with obs.prange(obs.KERNEL_K34):
+        if x.device.type != "cuda":
+            n_on = len({s for s, a in zip(seeds, active) if a})
+            with _build.plain_region("pmatmul_stack",
+                                     *cost(x, w, len(seeds), n_on)):
+                if x.device.type == "meta":  # shapes only: nothing to compute
+                    return x.new_empty((*x.shape[:-1], w.shape[1]))
+                return fref.pmatmul_stack(x, w, seeds, scales, active,
+                                          trans=trans, ld=ld, row_off=row_off,
+                                          col_off=col_off)
+        seeds, scales = tuple(seeds), tuple(scales)
+        active = tuple(bool(a) for a in active)
+        kw = dict(trans=trans, ld=ld, row_off=row_off, col_off=col_off)
+        P = x.shape[0]
+        if P <= 2:
+            out = _launch(x, w, seeds, scales, active, **kw)
+            stack_counter.launches += 1
+            return out
+        out = torch.empty((*x.shape[:-1], w.shape[1]), dtype=x.dtype,
+                          device=x.device)
+        for g in probe_groups(active):
+            if len(g) == 2 and seeds[g[0]] == seeds[g[1]]:
+                # direction_seeds folds the direction index into every seed
+                raise ValueError(f"probes {g} of one stack share seed "
+                                 f"{seeds[g[0]]}")
+            sub = lambda t: tuple(t[p] for p in g)
+            if g[-1] - g[0] == len(g) - 1:          # consecutive: views
+                sl = slice(g[0], g[-1] + 1)
+                _launch(x[sl], w, sub(seeds), sub(scales), sub(active),
+                        out=out[sl], **kw)
+            else:
+                idx = torch.tensor(g, device=x.device)
+                out.index_copy_(0, idx, _launch(
+                    x.index_select(0, idx), w, sub(seeds), sub(scales),
+                    sub(active), **kw))
+            stack_counter.launches += 1
         return out
-    out = torch.empty((*x.shape[:-1], w.shape[1]), dtype=x.dtype,
-                      device=x.device)
-    for g in probe_groups(active):
-        if len(g) == 2 and seeds[g[0]] == seeds[g[1]]:
-            # direction_seeds folds the direction index into every seed
-            raise ValueError(f"probes {g} of one stack share seed "
-                             f"{seeds[g[0]]}")
-        sub = lambda t: tuple(t[p] for p in g)
-        if g[-1] - g[0] == len(g) - 1:          # consecutive: views
-            sl = slice(g[0], g[-1] + 1)
-            _launch(x[sl], w, sub(seeds), sub(scales), sub(active),
-                    out=out[sl], **kw)
-        else:
-            idx = torch.tensor(g, device=x.device)
-            out.index_copy_(0, idx, _launch(
-                x.index_select(0, idx), w, sub(seeds), sub(scales),
-                sub(active), **kw))
-        stack_counter.launches += 1
-    return out

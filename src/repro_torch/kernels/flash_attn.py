@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.kernels import _build
+from repro_torch.obs import trace as obs
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -247,17 +248,19 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, k_offset=0,
     if is_dtensor(q):
         return _sharded(q, k, v, causal=causal, q_offset=q_offset,
                         k_offset=k_offset, q_chunk=q_chunk, k_chunk=k_chunk)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, q_offset, k_offset,
-                                    q_chunk, k_chunk)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, causal=causal, q_offset=q_offset,
-                       k_offset=k_offset)
-    with _build.plain_region("flash_attention", *cost(
-            q, k, causal=causal, q_offset=q_offset, k_offset=k_offset)):
-        if q.device.type == "meta":      # shapes only: nothing to compute
-            return torch.empty_like(q)
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, k_offset=k_offset,
-                                     q_chunk=q_chunk, k_chunk=k_chunk)
+    with obs.prange(obs.KERNEL_K2):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, q_offset, k_offset,
+                                        q_chunk, k_chunk)
+        if q.device.type == "cuda":
+            return _launch(q, k, v, causal=causal, q_offset=q_offset,
+                           k_offset=k_offset)
+        with _build.plain_region("flash_attention", *cost(
+                q, k, causal=causal, q_offset=q_offset, k_offset=k_offset)):
+            if q.device.type == "meta":  # shapes only: nothing to compute
+                return torch.empty_like(q)
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset,
+                                         k_offset=k_offset,
+                                         q_chunk=q_chunk, k_chunk=k_chunk)

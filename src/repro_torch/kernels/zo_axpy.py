@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.obs import trace as obs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,14 +66,15 @@ def _launch(theta, mask, seed, scale, decay):
 def zo_axpy_2d_(theta, mask, seed: int, scale, decay=1.0):
     """In-place K1 on ``theta`` (L, n); ``mask`` (L,) bool; ``seed`` the
     leaf seed (uint32 int); ``scale``/``decay`` float32 scalars."""
-    if theta.device.type == "cuda":
-        return _launch(theta, mask, seed, scale, decay)
-    n = int(mask.sum()) * theta.shape[1]
-    with _build.plain_region("zo_axpy_2d", n * OPS_PER_ELEMENT,
-                             2.0 * n * theta.element_size()):
-        if theta.device.type == "meta":  # shapes only: nothing to compute
-            return theta
-        return kref.zo_axpy_2d_(theta, mask, seed, scale, decay)
+    with obs.prange(obs.KERNEL_K1):
+        if theta.device.type == "cuda":
+            return _launch(theta, mask, seed, scale, decay)
+        n = int(mask.sum()) * theta.shape[1]
+        with _build.plain_region("zo_axpy_2d", n * OPS_PER_ELEMENT,
+                                 2.0 * n * theta.element_size()):
+            if theta.device.type == "meta":  # shapes only: nothing to do
+                return theta
+            return kref.zo_axpy_2d_(theta, mask, seed, scale, decay)
 
 
 RNG_INPUTS = 1 << 24

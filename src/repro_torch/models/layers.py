@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.distributed import ctx
 from repro_torch.kernels import flash_attn as kflash
+from repro_torch.obs import trace as obs
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -39,17 +40,19 @@ NEG_INF = -1e30
 
 # ----------------------------------------------------------------- norms
 def rms_norm(x, scale, eps=1e-5):
-    xf = x.to(F32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
+    with obs.prange(obs.MODEL_NORM):
+        xf = x.to(F32)
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
-    xf = x.to(F32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps) * scale.to(F32) + bias.to(F32)
-    return y.to(x.dtype)
+    with obs.prange(obs.MODEL_NORM):
+        xf = x.to(F32)
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * scale.to(F32) + bias.to(F32)
+        return y.to(x.dtype)
 
 
 def apply_norm(cfg, p, x):

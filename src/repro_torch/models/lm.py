@@ -66,6 +66,7 @@ from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.fused import ref as fused_ref
 from repro_torch.models import frontends, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace as obs
 
 F32 = torch.float32
 CE_CHUNK = 512
@@ -348,21 +349,25 @@ def _run_block(cfg, b, p, x, pc=None, **mix_kw):
             f"virtual perturbation covers attn + dense blocks; got "
             f"{b.kind}+{b.ffn} (use forward_backend='materialized')")
     if b.kind == "attn":
-        x = x + layers.attn_fwd(cfg, p["mix"], x,
-                                pc=None if pc is None else pc.child("mix"),
-                                **mix_kw)
+        with obs.prange(obs.MODEL_ATTN):
+            x = x + layers.attn_fwd(
+                cfg, p["mix"], x, pc=None if pc is None else pc.child("mix"),
+                **mix_kw)
     elif b.kind == "mla":
         mix_kw.pop("pages", None)
-        x = x + layers.mla_fwd(cfg, p["mix"], x, **mix_kw)
+        with obs.prange(obs.MODEL_ATTN):
+            x = x + layers.mla_fwd(cfg, p["mix"], x, **mix_kw)
     else:
-        x = x + _recurrent(cfg, b, p["mix"], x, **mix_kw)
+        with obs.prange(obs.MODEL_RECURRENT):
+            x = x + _recurrent(cfg, b, p["mix"], x, **mix_kw)
     if b.ffn == "moe":
         y, aux = moe.moe_fwd(cfg, p["ffn"], x)
         return x + y, aux
     if b.ffn == "none":
         return x, None
-    return x + layers.ffn_fwd(cfg, p["ffn"], x,
-                              pc=None if pc is None else pc.child("ffn")), None
+    with obs.prange(obs.MODEL_FFN):
+        return x + layers.ffn_fwd(
+            cfg, p["ffn"], x, pc=None if pc is None else pc.child("ffn")), None
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
@@ -390,13 +395,9 @@ def forward(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
     return hidden if mode == "train" else (hidden, caches)
 
 
-def forward_aux(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
-                mode="train", caches=None, pos=0, pages=None, embeds=None):
-    """:func:`forward`'s computation -> (hidden, caches, aux): ``aux``
-    the float32 sum of the MoE blocks' load-balance terms in layer
-    order (the reference's ``aux_total``), None without MoE blocks."""
-    if mode != "train" and perturb is not None:
-        raise NotImplementedError(f"mode={mode!r} takes no perturbation")
+def _embed(cfg, params, tokens, perturb, mode, pos, embeds):
+    """The first hidden state (B, S, D), or (P·B, S, D) p-major under a
+    paired ctx: token rows (or stub embeddings) plus learned positions."""
     P = 0 if (perturb is None or perturb.pair is None) else perturb.pair.n
     tok = params["embed"]["tok"]
     if embeds is not None:
@@ -428,6 +429,18 @@ def forward_aux(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
                      ).reshape(x.shape)
             else:
                 x = x + fused_ref.ppos(pos_w, 0, S, pseed, perturb.scale)
+    return x
+
+
+def forward_aux(cfg: ModelConfig, params: LM, tokens, perturb=None, *,
+                mode="train", caches=None, pos=0, pages=None, embeds=None):
+    """:func:`forward`'s computation -> (hidden, caches, aux): ``aux``
+    the float32 sum of the MoE blocks' load-balance terms in layer
+    order (the reference's ``aux_total``), None without MoE blocks."""
+    if mode != "train" and perturb is not None:
+        raise NotImplementedError(f"mode={mode!r} takes no perturbation")
+    with obs.prange(obs.MODEL_EMBED):
+        x = _embed(cfg, params, tokens, perturb, mode, pos, embeds)
     aux_total = None
     for si, st in enumerate(cfg.stages):
         sp = params["stages"][f"s{si}"]
@@ -481,6 +494,12 @@ def chunked_ce(cfg, params, hidden, labels, loss_mask, perturb=None):
             chunked_ce(cfg, params, hidden[pi * B0:(pi + 1) * B0], labels,
                        loss_mask, perturb=perturb.probe(pi))
             for pi in range(P)])
+    with obs.prange(obs.MODEL_HEAD_CE):
+        return _ce(cfg, params, hidden, labels, loss_mask, perturb)
+
+
+def _ce(cfg, params, hidden, labels, loss_mask, perturb):
+    """:func:`chunked_ce` of one probe (or none)."""
     B, S, D = hidden.shape
     chunk = min(CE_CHUNK, S)
     if S % chunk:

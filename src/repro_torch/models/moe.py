@@ -45,6 +45,7 @@ import torch
 from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.models import layers
+from repro_torch.obs import trace as obs
 
 F32 = torch.float32
 
@@ -200,52 +201,57 @@ def _moe_local(cfg, p, x, means=None, tp=None):
     tp = tp or ctx.LOCAL
     h = layers.apply_norm(cfg, p["norm"], x)
 
-    logits = h.to(F32) @ p["router"]
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = route(probs, k)
+    with obs.prange(obs.MOE_ROUTE):
+        logits = h.to(F32) @ p["router"]
+        probs = torch.softmax(logits, dim=-1)
+        top_w, top_e = route(probs, k)
 
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.zeros((B, E), dtype=F32, device=x.device)
-    ce.scatter_add_(1, top_e.reshape(B, -1),
-                    torch.ones((B, S * k), dtype=F32, device=x.device))
-    ce = ce / (S * k)
-    aux = E * torch.sum(me * torch.mean(ce, dim=0))
-    if means is not None:
-        means.update(me=me, ce=torch.mean(ce, dim=0))
+        me = torch.mean(probs, dim=(0, 1))
+        ce = torch.zeros((B, E), dtype=F32, device=x.device)
+        ce.scatter_add_(1, top_e.reshape(B, -1),
+                        torch.ones((B, S * k), dtype=F32, device=x.device))
+        ce = ce / (S * k)
+        aux = E * torch.sum(me * torch.mean(ce, dim=0))
+        if means is not None:
+            means.update(me=me, ce=torch.mean(ce, dim=0))
 
     # ---- per-row sort-based dispatch -----------------------------------
-    order, e_s, keep, slot = dispatch(top_e, E, C)
-    w_s = torch.gather(top_w.reshape(B, S * k), 1, order)
-    # each assignment's row of h, read from h repeated k times (flat
-    # index t·k + r) at the sort permutation: the gradient goes back
-    # through a permutation and a sum over k in a fixed order, where
-    # reading h at the token index would scatter-add k rows a token
-    hk = h[:, :, None].expand(B, S, k, D).reshape(B, S * k, D)
-    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf.scatter_(1, slot[..., None].expand(-1, -1, D), _rows(hk, order))
-    eb = buf[:, :-1].reshape(B, E, C, D)
+    with obs.prange(obs.MOE_DISPATCH):
+        order, e_s, keep, slot = dispatch(top_e, E, C)
+        w_s = torch.gather(top_w.reshape(B, S * k), 1, order)
+        # each assignment's row of h, read from h repeated k times (flat
+        # index t·k + r) at the sort permutation: the gradient goes back
+        # through a permutation and a sum over k in a fixed order, where
+        # reading h at the token index would scatter-add k rows a token
+        hk = h[:, :, None].expand(B, S, k, D).reshape(B, S * k, D)
+        buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
+        buf.scatter_(1, slot[..., None].expand(-1, -1, D), _rows(hk, order))
+        eb = buf[:, :-1].reshape(B, E, C, D)
 
     # ---- expert FFN (batched SwiGLU over the experts) ------------------
-    g = torch.einsum("becd,edf->becf", eb, p["we_g"])
-    u = torch.einsum("becd,edf->becf", eb, p["we_u"])
-    a = (torch.nn.functional.silu(g.to(F32)) * u.to(F32)).to(x.dtype)
-    o = tp.sum(torch.einsum("becf,efd->becd", a, p["we_d"]).to(F32))
-    o = o.reshape(B, E * C, D)
+    with obs.prange(obs.MOE_EXPERTS):
+        g = torch.einsum("becd,edf->becf", eb, p["we_g"])
+        u = torch.einsum("becd,edf->becf", eb, p["we_u"])
+        a = (torch.nn.functional.silu(g.to(F32)) * u.to(F32)).to(x.dtype)
+        o = tp.sum(torch.einsum("becf,efd->becd", a, p["we_d"]).to(F32))
+        o = o.reshape(B, E * C, D)
 
     # ---- combine: each token's k terms in sorted order -----------------
-    contrib = (_rows(o, torch.clamp(slot, 0, E * C - 1))
-               * torch.where(keep, w_s, torch.zeros_like(w_s))[..., None])
-    inv = torch.empty_like(order)
-    inv.scatter_(1, order, torch.arange(S * k, device=x.device).expand(
-        B, -1))                                   # flat -> sorted position
-    mine = torch.sort(inv.reshape(B, S, k), dim=-1).values
-    terms = _rows(contrib, mine.reshape(B, S * k)).reshape(B, S, k, D)
-    y = torch.zeros((B, S, D), dtype=F32, device=x.device)
-    for r in range(k):
-        y = y + terms[:, :, r]
+    with obs.prange(obs.MOE_COMBINE):
+        contrib = (_rows(o, torch.clamp(slot, 0, E * C - 1))
+                   * torch.where(keep, w_s, torch.zeros_like(w_s))[..., None])
+        inv = torch.empty_like(order)
+        inv.scatter_(1, order, torch.arange(S * k, device=x.device).expand(
+            B, -1))                               # flat -> sorted position
+        mine = torch.sort(inv.reshape(B, S, k), dim=-1).values
+        terms = _rows(contrib, mine.reshape(B, S * k)).reshape(B, S, k, D)
+        y = torch.zeros((B, S, D), dtype=F32, device=x.device)
+        for r in range(k):
+            y = y + terms[:, :, r]
 
     if cfg.n_shared_experts:
-        sg = torch.nn.functional.silu((h @ p["ws_g"]).to(F32))
-        su = (h @ p["ws_u"]).to(F32)
-        y = y + tp.sum(((sg * su).to(x.dtype) @ p["ws_d"]).to(F32))
+        with obs.prange(obs.MOE_EXPERTS):
+            sg = torch.nn.functional.silu((h @ p["ws_g"]).to(F32))
+            su = (h @ p["ws_u"]).to(F32)
+            y = y + tp.sum(((sg * su).to(x.dtype) @ p["ws_d"]).to(F32))
     return y.to(x.dtype), aux

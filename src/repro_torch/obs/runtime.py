@@ -87,8 +87,12 @@ def session(telemetry=None) -> Session:
     if jsonl_path:
         jsonl = sinks_mod.JSONLSink(jsonl_path)
         sinks.append(jsonl)
+    profile_dir = getattr(telemetry, "profile_dir", None)
+    # a profiled run's Chrome trace carries the spans and the finer
+    # ranges (``Tracer.range``) beside the device records
     tracer = trace_mod.Tracer(sinks=sinks,
-                              fence=getattr(telemetry, "fence", False))
+                              fence=getattr(telemetry, "fence", False),
+                              annotate=bool(profile_dir))
     return Session(tracer, ring=ring, jsonl=jsonl,
                    prometheus_path=getattr(telemetry, "prometheus", None),
-                   profile_dir=getattr(telemetry, "profile_dir", None))
+                   profile_dir=profile_dir)

@@ -25,6 +25,18 @@ Three rules keep the hot paths honest, as in the reference:
     ``fence=False`` the same call is free and launches stay
     asynchronous.
 
+``Tracer(annotate=True)`` also puts the program's structure into a
+``torch.profiler`` trace: while a profiler records, every span opens a
+profiler range of its name (:func:`range_name`: ``ε`` spelt out), and
+:meth:`Tracer.range` opens one at the finer sites below the stages
+(the ZO step's host work, the model's sublayers, the hand-written
+kernels' launches), so device records and idle gaps share the
+profiler's clock with the code that caused them.  ``range`` records
+nothing into the sinks, and with no profiler recording (one module
+flag read) or on any other tracer it is the shared do-nothing span.
+The sites call :func:`prange`, which reads one module flag and goes no
+further unless the installed tracer annotates.
+
 The stage and counter names are the reference's strings, so tools that
 read either package's traces join on them.
 """
@@ -35,6 +47,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # ------------------------------------------------------- stage taxonomy
 # `perturb` appears twice per materialized two-point step (+eps, -2eps)
@@ -63,6 +76,43 @@ CTR_WLOAD = "w_tile_loads"
 CTR_ZREGEN = "z_regens"
 GAUGE_ACTIVE = "active_layers"
 
+# Profiler range names (``Tracer.range``), by the site that opens each.
+ZO_STEP = "zo/step"                 # estimators.make_step's step, whole
+ZO_SELECT = "zo/select"             # Estimator.select: the layer draw
+ZO_READBACK = "zo/readback"         # estimators.base.host_f32's .item()
+MODEL_EMBED = "model/embed"         # models.lm: token (+ position) rows
+MODEL_ATTN = "model/attn"           # models.lm._run_block: attn, MLA
+MODEL_RECURRENT = "model/recurrent"  # models.lm._run_block: Mamba, xLSTM
+MODEL_FFN = "model/ffn"             # models.lm._run_block: dense FFN
+MOE_ROUTE = "model/moe/route"       # models.moe: router, softmax, aux
+MOE_DISPATCH = "model/moe/dispatch"  # sort, gather, scatter into slots
+MOE_EXPERTS = "model/moe/experts"   # expert and shared-expert products
+MOE_COMBINE = "model/moe/combine"   # each token's k terms summed
+MODEL_NORM = "model/norm"           # models.layers.rms_norm, layer_norm
+MODEL_HEAD_CE = "model/head_ce"     # models.lm.chunked_ce, one a probe
+KERNEL_K1 = "kernel/zo_axpy_2d"     # kernels.zo_axpy.zo_axpy_2d_
+KERNEL_K2 = "kernel/flash_attention"  # kernels.flash_attn.flash_attention
+KERNEL_K34 = "kernel/pmatmul"       # fused.matmul.pmatmul(_stack)
+RANGES: Tuple[str, ...] = (
+    ZO_STEP, ZO_SELECT, ZO_READBACK, MODEL_EMBED, MODEL_ATTN,
+    MODEL_RECURRENT, MODEL_FFN, MOE_ROUTE, MOE_DISPATCH, MOE_EXPERTS,
+    MOE_COMBINE, MODEL_NORM, MODEL_HEAD_CE, KERNEL_K1, KERNEL_K2,
+    KERNEL_K34)
+
+# The profiler's Chrome trace drops a name outside ASCII: a span opens a
+# range of its own name, but the probe forwards' ranges spell ε out.
+_SPAN_RANGE = {FWD_PLUS: "forward+eps_z", FWD_MINUS: "forward-eps_z"}
+
+
+def range_name(span: str) -> str:
+    """The name of the profiler range span ``span`` opens."""
+    return _SPAN_RANGE.get(span, span)
+
+
+# One profiler range as a context manager: the C++ RecordFunction, several
+# times cheaper under a profiler than ``record_function``'s Python path.
+_RANGE = torch._C._profiler._RecordFunctionFast
+
 
 def tracing() -> bool:
     """True while ``torch.compile`` traces: spans and counters must not
@@ -72,6 +122,11 @@ def tracing() -> bool:
 
 
 _tracing = tracing
+
+
+def _profiling() -> bool:
+    """True while a ``torch.profiler`` records (a module flag: free)."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 @dataclasses.dataclass
@@ -120,7 +175,8 @@ class Span:
     as the span's result: when the owning tracer fences, the clock stops
     only after ``x``'s device has finished."""
 
-    __slots__ = ("_tracer", "name", "meta", "_t0", "_result", "_entry")
+    __slots__ = ("_tracer", "name", "meta", "_t0", "_result", "_entry",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str,
                  meta: Optional[Dict[str, Any]] = None):
@@ -135,6 +191,10 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._entry = self._tracer._enter()
+        self._range = None
+        if self._tracer.annotate and _profiling():
+            self._range = _RANGE(range_name(self.name))
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -142,6 +202,9 @@ class Span:
         if self._tracer.fence and self._result is not None:
             _sync_cuda(self._result)
         dt = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         self._tracer._exit(self, dt)
         self._result = None
         return False
@@ -171,13 +234,17 @@ class Tracer:
     ``sinks``: objects with ``emit(record: SpanRecord)``.
     ``fence``: synchronise each span's fenced result before the clock
     stops (true stage timings; off for steady-state pipelines).
+    ``annotate``: while a ``torch.profiler`` records, open a profiler
+    range for every span and at every :meth:`range` site.
     """
 
     enabled = True
 
-    def __init__(self, sinks=(), fence: bool = False):
+    def __init__(self, sinks=(), fence: bool = False,
+                 annotate: bool = False):
         self.sinks = list(sinks)
         self.fence = fence
+        self.annotate = annotate
         self.counters: Dict[str, int] = {}
         self.gauges: Dict[str, float] = {}
         self._depth = 0
@@ -189,6 +256,15 @@ class Tracer:
         if _tracing():
             return _NULL_SPAN
         return Span(self, name, meta)
+
+    def range(self, name: str):
+        """A profiler range ``name`` (one of :data:`RANGES`) around a
+        fine-grained site, recorded only by an annotating tracer while a
+        profiler records; it emits no :class:`SpanRecord`.  Otherwise
+        the shared do-nothing span."""
+        if not self.annotate or not _profiling() or _tracing():
+            return _NULL_SPAN
+        return _RANGE(name)
 
     def _enter(self) -> int:
         entry = self._index
@@ -240,6 +316,9 @@ class NullTracer(Tracer):
     def span(self, name: str, meta=None):
         return _NULL_SPAN
 
+    def range(self, name: str):
+        return _NULL_SPAN
+
     def count(self, name: str, n: int = 1):
         pass
 
@@ -251,17 +330,30 @@ NULL = NullTracer()
 _CURRENT: Tracer = NULL
 
 
+_annotating = False        # the installed tracer annotates
+
+
 def get_tracer() -> Tracer:
     return _CURRENT
 
 
 def set_tracer(tracer: Optional[Tracer]) -> Tracer:
     """Install ``tracer`` (None -> NULL) globally; returns the previous
-    one so callers can restore it."""
-    global _CURRENT
+    one so callers can restore it.  Its ``annotate`` is read here."""
+    global _CURRENT, _annotating
     prev = _CURRENT
     _CURRENT = tracer if tracer is not None else NULL
+    _annotating = _CURRENT.annotate
     return prev
+
+
+def prange(name: str):
+    """The installed tracer's :meth:`Tracer.range` ``name``: what the
+    program's range sites open.  Unless that tracer annotates, the
+    shared do-nothing span after one module flag read."""
+    if _annotating:
+        return _CURRENT.range(name)
+    return _NULL_SPAN
 
 
 class use:

@@ -9,7 +9,11 @@ metrics, the telemetry spec node's validation, the session and the
 profiler region, and the instrumented step: span names, nesting and
 parents of one eager step and its counters equal the reference's, the
 paired forward halves the W tiles the kernels load, the counters follow
-the kernels' grid, and ``tree_z_norm`` equals the reference's.
+the kernels' grid, and ``tree_z_norm`` equals the reference's.  The
+annotating tracer's profiler ranges (``Tracer(annotate=True)``,
+``Tracer.range``) are the port's alone: their names, nesting and counts
+a step, and that they change neither the span stream nor a bit of the
+step.
 
 ``rng_folds`` equals the reference's for the materialized step and
 differs by design under virtual forwards: the reference counts a fold
@@ -18,6 +22,7 @@ matmuls run inside its layer scan, traced, and are not counted), while
 every fold of the port runs on the host and counts, so the port's count
 is larger there (``test_eager_step_matches_reference``; PERF.md §3).
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -36,6 +41,7 @@ from repro.core import zo as jzo
 from repro.models import lm as jlm
 from repro_torch import api as tapi
 from repro_torch import estimators as test_mod
+from repro_torch import configs as tconfigs
 from repro_torch import fused, obs
 from repro_torch.configs import opt as topt
 from repro_torch.core import zo as tzo
@@ -306,6 +312,215 @@ def test_profile_region_writes_a_chrome_trace(tmp_path):
     with pytest.raises(KeyError):             # the body's error propagates
         with obs.profile(str(tmp_path / "p2")):
             raise KeyError("body")
+    # a trainer session with a profile_dir annotates: its trace holds the
+    # ZO step's range and the stage spans as ranges
+    d = str(tmp_path / "train")
+    spec = tapi.with_overrides(tapi.preset("tiny-smoke"), {
+        "run.steps": 1, "run.eval_every": 0, "run.log_every": 1,
+        "telemetry.enabled": True, "telemetry.ring": 64,
+        "telemetry.profile_dir": d})
+    from repro_torch.train.trainer import Trainer
+    Trainer.from_spec(spec, device="cpu").train()
+    (name,) = os.listdir(d)
+    with open(os.path.join(d, name)) as f:
+        seen = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {obs.TRAIN_STEP, "zo/step", obs.PERTURB, "forward+eps_z",
+            "model/attn", "kernel/flash_attention", obs.UPDATE} <= seen
+
+
+def test_session_annotates_only_a_profiled_run(tmp_path):
+    plain = obs.session(tapi.Telemetry(enabled=True, ring=16))
+    prof = obs.session(tapi.Telemetry(enabled=True, ring=16,
+                                      profile_dir=str(tmp_path)))
+    assert not plain.tracer.annotate and prof.tracer.annotate
+    assert not obs.NULL.annotate
+
+
+# ------------------------------------------------------- profiler ranges
+class _CountingRange:
+    """Stands in for the profiler's range: counts entries."""
+    entered = 0
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        _CountingRange.entered += 1
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_range_is_free_off_an_annotating_tracer_or_profiler(monkeypatch):
+    """``range`` on NULL, on a plain tracer (profiler on or off) and on
+    an annotating tracer with no profiler is the shared do-nothing span:
+    no profiler range is entered, nothing is allocated; under a profiler
+    an annotating tracer enters one a call, and one a span.  ``prange``,
+    what the sites call, asks the installed tracer only if it annotates."""
+    from repro_torch.obs import trace as obs_trace
+    monkeypatch.setattr(obs_trace, "_RANGE", _CountingRange)
+    monkeypatch.setattr(_CountingRange, "entered", 0)
+    plain, annot = obs.Tracer(), obs.Tracer(annotate=True)
+    for tr in (obs.NULL, plain, annot):
+        r = tr.range("model/attn")
+        assert r is obs.NULL.span("x")
+        with r:
+            pass
+        with obs.use(tr):
+            assert obs.prange("model/attn") is obs.NULL.span("x")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for tr in (obs.NULL, plain):
+            assert tr.range("model/attn") is obs.NULL.span("x")
+            with obs.use(tr):
+                assert obs.prange("model/attn") is obs.NULL.span("x")
+            with tr.span("s"):
+                pass
+        assert _CountingRange.entered == 0
+        with annot.range("model/attn"):
+            with annot.span("s"):
+                pass
+        assert _CountingRange.entered == 2
+        with obs.use(annot), obs.prange("model/attn"):
+            pass
+        assert _CountingRange.entered == 3
+        assert obs.prange("model/attn") is obs.NULL.span("x")
+        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+        assert annot.range("model/attn") is obs.NULL.span("x")
+    assert _CountingRange.entered == 3
+
+
+def _profiled_ranges(prof):
+    """[(name, chain of enclosing range names, innermost first)] of the
+    program's ranges and stage spans in a CPU profile, in start order."""
+    span = {obs.trace.range_name(n): n for n in obs.STAGES}
+    names = set(obs.RANGES) | set(span)
+    out = []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.name not in names:
+            continue
+        chain, q = [], e.cpu_parent
+        while q is not None:
+            if q.name in names:
+                chain.append(span.get(q.name, q.name))
+            q = q.cpu_parent
+        out.append((span.get(e.name, e.name), tuple(chain)))
+    return out
+
+
+def _smoke_step(arch, variant, backend):
+    cfg = (topt.opt_tiny(**CFG) if arch == "opt"
+           else tconfigs.get(arch, variant))
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    spec = tzo.build_spec(params, tlm.zo_group_fn)
+    step, init = test_mod.make_step(
+        lambda p, b, perturb=None: tlm.lm_loss(cfg, p, b, perturb=perturb),
+        spec, test_mod.EstimatorConfig(eps=1e-3, lr=1e-4, n_drop=1,
+                                       backend="pallas",
+                                       forward_backend=backend))
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg.vocab).items()}
+    return cfg, params, step, init, batch
+
+
+@pytest.mark.parametrize("backend", ["materialized", "virtual"])
+def test_annotated_step_ranges_nest_and_count(backend):
+    """One LeZO step under an annotating tracer and a CPU profiler: the
+    ZO step holds the selection, the stages and the readbacks; each
+    forward holds its sublayers, the sublayers their kernels' wrappers;
+    K1's wrapper runs inside the perturb and update stages."""
+    cfg, params, step, init, batch = _smoke_step("opt", None, backend)
+    with obs.use(obs.Tracer(annotate=True)), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(params, init(), batch, 0, 7)
+    got = _profiled_ranges(prof)
+    count = {n: sum(g[0] == n for g in got) for n in {g[0] for g in got}}
+    nested = {(n, c[0] if c else None) for n, c in got}
+    fwd = obs.FWD_PLUS if backend == "materialized" else obs.FWD_PAIR
+    assert got[0] == ("zo/step", ())
+    assert all(c[-1] == "zo/step" for _, c in got[1:])
+    assert count["zo/step"] == 1 and count["zo/select"] == 1
+    assert count["zo/readback"] == 2 and count["model/head_ce"] == 2
+    assert count["model/attn"] == (2 if backend == "materialized" else 1) \
+        * CFG["layers"]
+    assert ("model/attn", fwd) in nested and ("model/ffn", fwd) in nested
+    assert ("model/embed", fwd) in nested
+    assert ("model/head_ce", fwd) in nested
+    assert ("model/norm", "model/attn") in nested
+    assert ("zo/readback", "zo/step") in nested
+    assert ("kernel/zo_axpy_2d", obs.UPDATE) in nested
+    if backend == "materialized":
+        assert ("kernel/zo_axpy_2d", obs.PERTURB) in nested
+        assert ("kernel/flash_attention", "model/attn") in nested
+        assert [g for g in got if g[0] == "model/attn"][0][1] == (
+            obs.FWD_PLUS, "zo/step")
+    else:
+        assert ("kernel/pmatmul", "model/attn") in nested
+        assert ("kernel/pmatmul", "model/head_ce") in nested
+
+
+def test_moe_ranges_once_a_moe_layer_a_forward():
+    """On deepseek-v2-lite's smoke config (a dense layer, then MoE
+    layers with shared experts) each MoE layer of each forward opens
+    route, dispatch, experts and combine once, in that order, inside its
+    forward, then experts once more for the shared experts."""
+    cfg, params, step, init, batch = _smoke_step(
+        "deepseek-v2-lite-16b", "smoke", "materialized")
+    n_moe = sum(st.repeat for st in cfg.stages
+                for b in st.pattern if b.ffn == "moe")
+    with obs.use(obs.Tracer(annotate=True)), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(params, init(), batch, 0, 7)
+    got = [(n, c[0]) for n, c in _profiled_ranges(prof)
+           if n.startswith("model/moe/")]
+    parts = ["model/moe/route", "model/moe/dispatch", "model/moe/experts",
+             "model/moe/combine", "model/moe/experts"]
+    fwds = [obs.FWD_PLUS] * n_moe + [obs.FWD_MINUS] * n_moe
+    assert n_moe >= 1 and cfg.n_shared_experts
+    assert got == [(p, f) for f in fwds for p in parts]
+
+
+def test_annotation_leaves_the_span_stream_unchanged():
+    """The ring receives the same span records a step, names, depths,
+    parents and indices, with annotation on under a profiler as off."""
+    recs = []
+    for annotate in (False, True):
+        cfg, params, step, init, batch = _smoke_step(
+            "opt", None, "materialized")
+        ring = obs.RingSink()
+        with obs.use(obs.Tracer(sinks=[ring], annotate=annotate)), \
+                torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+            step(params, init(), batch, 0, 7)
+        recs.append(_records(ring))
+    assert recs[0] == recs[1]
+    assert [r[0] for r in recs[1]] == [obs.PERTURB, obs.FWD_PLUS,
+                                       obs.PERTURB, obs.FWD_MINUS,
+                                       obs.UPDATE]
+
+
+@pytest.mark.parametrize("mode", ["plain", "annotate"])
+def test_annotation_leaves_the_step_bit_exact(mode):
+    """Losses, g and every parameter after a step equal the NULL
+    tracer's bit for bit, with a plain tracer and with an annotating
+    tracer under a live profiler."""
+    out = {}
+    for side in ("null", mode):
+        cfg, params, step, init, batch = _smoke_step(
+            "opt", None, "materialized")
+        tr = {"null": obs.NULL, "plain": obs.Tracer(),
+              "annotate": obs.Tracer(annotate=True)}[side]
+        with obs.use(tr), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]
+        ) if side == "annotate" else contextlib.nullcontext():
+            _, _, m = step(params, init(), batch, 0, 7)
+        out[side] = (m, tzo.leaf_items(params))
+    (m0, p0), (m1, p1) = out["null"], out[mode]
+    for key in ("l_plus", "l_minus", "projected_grad"):
+        assert m0[key].tobytes() == m1[key].tobytes(), key
+    assert [k for k, _ in p0] == [k for k, _ in p1]
+    for (k, a), (_, b) in zip(p0, p1):
+        assert torch.equal(a, b), k
 
 
 # --------------------------------------------- estimator instrumentation
