@@ -806,8 +806,55 @@ def phase_parity(cfg, eps, k1_sass):
         f"{rows['flash_attention']['long_ms']:.4f} ms, SDPA "
         f"{rows['flash_attention']['long_library_ms']:.4f} ms")
     del q, k, v, got, want, qs, ks, vs
+    # The norm kernel at the cells' shapes: OPT-13B's LayerNorm over the
+    # (B*S, D) activations and DeepSeek-V2-Lite's RMSNorm (16 x 255, 2048)
+    rows["norm_rows"] = _norm_parity(g, M, D)
     torch.cuda.empty_cache()
     return rows
+
+
+def _norm_parity(g, M, D):
+    """The norm kernel against its plain float32 ops: bf16 results within
+    one step on all but 0.01 % of elements (more only where x - mu
+    cancels), all but 0.1 % equal; times and bytes bounds at OPT-13B's
+    LayerNorm (M, D) and DeepSeek-V2-Lite's RMSNorm."""
+    import torch
+    from repro_torch.kernels import norm as knorm
+    row = {}
+    for tag, kind, shape in (("", "layer", (M, D)),
+                             ("rms_", "rms", (16 * 255, 2048))):
+        x = torch.randn(shape, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        ps = tuple(1 + 0.1 * torch.randn((shape[-1],), generator=g,
+                                         device="cuda")
+                   for _ in range(2 if kind == "layer" else 1))
+        fn, plain = ((knorm.layer_norm, knorm.layer_norm_plain)
+                     if kind == "layer"
+                     else (knorm.rms_norm, knorm.rms_norm_plain))
+        got, want = fn(x, *ps), plain(x, *ps)
+        ulps = bf16_ulps(got, want)
+        off = (ulps > 0).float().mean().item()
+        far = (ulps > 1).float().mean().item()
+        if far > 1e-4 or off > 1e-3:
+            raise SystemExit(f"norm_rows {kind} {shape}: {far:.2e} of "
+                             f"elements past 1 ulp, {off:.2e} differ")
+        nbytes = knorm.cost(x, ps)[1]
+        row.update({
+            f"{tag}max_abs_err": (got.float() - want.float()).abs().max(
+            ).item(),
+            f"{tag}ms": time_ms(lambda: fn(x, *ps), reps=100),
+            f"{tag}plain_ms": time_ms(lambda: plain(x, *ps), reps=20),
+            f"{tag}bound_ms": nbytes / H100_BYTES * 1e3,
+            f"{tag}bound_by": "bytes"})
+        log(f"[parity] norm_rows {kind} {shape} bf16: {off:.2e} of "
+            f"elements differ, {far:.2e} past 1 ulp (at most "
+            f"{ulps.max().item()}); {row[tag + 'ms']:.4f} ms, "
+            f"plain {row[tag + 'plain_ms']:.4f} ms, bound "
+            f"{row[tag + 'bound_ms']:.4f} ms (bytes)")
+    row.update(library_ms=None, tolerance="bf16: all but 0.01 % of "
+               "elements within 1 ulp of the plain float32 ops, all but "
+               "0.1 % equal")
+    return row
 
 
 def _counters():
@@ -826,7 +873,8 @@ def phase_train():
     spec = api.with_overrides(api.preset("lezo-opt13b"), MAIN_OVERRIDES)
     torch.cuda.reset_peak_memory_stats()
     from repro_torch.fused import matmul as fmm
-    counters = _counters()
+    from repro_torch.kernels import norm as knorm
+    counters = {**_counters(), "norm_rows": knorm.counter}
     for c in list(counters.values()) + list(fmm.route_counters.values()):
         c.launches = 0
     t = time.perf_counter()
@@ -851,7 +899,11 @@ def phase_train():
     want = {"zo_axpy_2d": 14 * spec.run.steps,
             "flash_attention": L * spec.run.steps,
             "pmatmul_stack": 6 * L * spec.run.steps,
-            "pmatmul": 2 * spec.run.steps}
+            "pmatmul": 2 * spec.run.steps,
+            # one launch a norm of the paired forward, both probes in it:
+            # two a layer and the final norm; a norm that fell back to
+            # the plain ops shows as a launch short
+            "norm_rows": (2 * L + 1) * spec.run.steps}
     if launches != want:
         raise SystemExit(f"train: launches {launches} != expected {want}")
     k34 = launches["pmatmul_stack"] + launches["pmatmul"]
@@ -5087,6 +5139,9 @@ SOURCES = {
                       "src/repro/fused/matmul.py:273"),
     "pmatmul": ("src/repro_torch/csrc/pmatmul.cu",
                 "src/repro/fused/matmul.py:154"),
+    "norm_rows": ("src/repro_torch/csrc/norm.cu",
+                  "no pallas_call: the reference's norms are XLA ops "
+                  "(src/repro/models/layers.py:32, :38)"),
 }
 
 

@@ -16,7 +16,9 @@ The serving modes write their K/V into caches in place: the lockstep
 cache (R, B, Smax, KV, dh) and the paged arena (R, n_pages, page_size,
 KV, dh) are the reference's layouts, one layer's slice at a time.
 Decode and paged attention are plain PyTorch, as the reference's are
-``einsum``s outside any Pallas kernel; so are rope and the norms.
+``einsum``s outside any Pallas kernel; so is rope.  The norms run the
+norm kernel on the card (``kernels/norm.py``) and their plain float32
+ops elsewhere.
 
 Under a registered mesh (``distributed/ctx.py``) train and prefill
 attention pin q/k/v where the reference does: KV heads on ``model`` when
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.distributed import ctx
 from repro_torch.kernels import flash_attn as kflash
+from repro_torch.kernels import norm as knorm
 from repro_torch.obs import trace as obs
 
 F32 = torch.float32
@@ -41,18 +44,12 @@ NEG_INF = -1e30
 # ----------------------------------------------------------------- norms
 def rms_norm(x, scale, eps=1e-5):
     with obs.prange(obs.MODEL_NORM):
-        xf = x.to(F32)
-        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + eps) * scale.to(F32)).to(x.dtype)
+        return knorm.rms_norm(x, scale, eps)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
     with obs.prange(obs.MODEL_NORM):
-        xf = x.to(F32)
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps) * scale.to(F32) + bias.to(F32)
-        return y.to(x.dtype)
+        return knorm.layer_norm(x, scale, bias, eps)
 
 
 def apply_norm(cfg, p, x):

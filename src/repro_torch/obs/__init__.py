@@ -5,7 +5,8 @@ and run directories of the port (counterpart of ``repro/obs``).
     ``perf_counter`` clock, with fencing (a CUDA synchronise on a span's
     result when asked), nesting, a zero-allocation disabled path, the
     named ZO step stages and counters for probes, axpy sweeps, RNG folds,
-    layer selections, active layers and K3/K4 W tiles and z tiles; with
+    layer selections, active layers, K3/K4 W tiles and z tiles and the
+    norm kernel's launches and bypasses on the card; with
     ``annotate``, spans and the finer range sites (:data:`RANGES`,
     opened by :func:`prange`) as ``torch.profiler`` ranges.
   * :mod:`~repro_torch.obs.sinks` — in-memory ring buffer + JSONL log.
@@ -33,7 +34,8 @@ from repro_torch.obs.runlog import (DEFAULT_RUNS_DIR, RunDir, RunLog,
 from repro_torch.obs.runtime import NULL_SESSION, Session, session
 from repro_torch.obs.sinks import (JSONLSink, RingSink, read_jsonl,
                                    spans_from_jsonl)
-from repro_torch.obs.trace import (CTR_AXPY, CTR_PROBES, CTR_RNG_FOLDS,
+from repro_torch.obs.trace import (CTR_AXPY, CTR_NORM_KERNEL,
+                                   CTR_NORM_PLAIN, CTR_PROBES, CTR_RNG_FOLDS,
                                    CTR_SELECTS, CTR_WLOAD, CTR_ZREGEN,
                                    FWD_BASE, FWD_MINUS, FWD_PAIR, FWD_PLUS,
                                    GAUGE_ACTIVE, NULL, PERTURB, RANGES,
@@ -43,14 +45,14 @@ from repro_torch.obs.trace import (CTR_AXPY, CTR_PROBES, CTR_RNG_FOLDS,
                                    use)
 
 __all__ = [
-    "CTR_AXPY", "CTR_PROBES", "CTR_RNG_FOLDS", "CTR_SELECTS", "CTR_WLOAD",
-    "CTR_ZREGEN", "Counter", "DEFAULT_RUNS_DIR", "FWD_BASE", "FWD_MINUS",
-    "FWD_PAIR", "FWD_PLUS", "GAUGE_ACTIVE", "Gauge", "HealthAccumulator",
-    "Histogram", "JSONLSink", "LATENCY_BUCKETS", "NULL", "NULL_SESSION",
-    "PERTURB", "RANGES", "Registry", "RingSink", "RunDir", "RunLog",
-    "SERVE_DECODE", "SERVE_PREFILL", "STAGES", "Session", "Span",
-    "SpanRecord", "TRAIN_STEP", "Tracer", "UPDATE", "get_tracer",
-    "list_runs", "load_run", "make_run_id", "prange", "profile",
-    "read_jsonl", "resolve_run", "session", "set_tracer",
+    "CTR_AXPY", "CTR_NORM_KERNEL", "CTR_NORM_PLAIN", "CTR_PROBES",
+    "CTR_RNG_FOLDS", "CTR_SELECTS", "CTR_WLOAD", "CTR_ZREGEN", "Counter",
+    "DEFAULT_RUNS_DIR", "FWD_BASE", "FWD_MINUS", "FWD_PAIR", "FWD_PLUS",
+    "GAUGE_ACTIVE", "Gauge", "HealthAccumulator", "Histogram", "JSONLSink",
+    "LATENCY_BUCKETS", "NULL", "NULL_SESSION", "PERTURB", "RANGES",
+    "Registry", "RingSink", "RunDir", "RunLog", "SERVE_DECODE",
+    "SERVE_PREFILL", "STAGES", "Session", "Span", "SpanRecord", "TRAIN_STEP",
+    "Tracer", "UPDATE", "get_tracer", "list_runs", "load_run", "make_run_id",
+    "prange", "profile", "read_jsonl", "resolve_run", "session", "set_tracer",
     "spans_from_jsonl", "tracing", "use",
 ]

@@ -74,6 +74,10 @@ CTR_SELECTS = "layer_selections"
 # kernels and their plain versions report the same dataflow.
 CTR_WLOAD = "w_tile_loads"
 CTR_ZREGEN = "z_regens"
+# Norm calls on the card (kernels.norm): launches of the norm kernel, and
+# calls on CUDA tensors that ran the plain float32 ops instead.
+CTR_NORM_KERNEL = "norm_kernel_calls"
+CTR_NORM_PLAIN = "norm_plain_calls"
 GAUGE_ACTIVE = "active_layers"
 
 # Profiler range names (``Tracer.range``), by the site that opens each.
@@ -93,11 +97,12 @@ MODEL_HEAD_CE = "model/head_ce"     # models.lm.chunked_ce, one a probe
 KERNEL_K1 = "kernel/zo_axpy_2d"     # kernels.zo_axpy.zo_axpy_2d_
 KERNEL_K2 = "kernel/flash_attention"  # kernels.flash_attn.flash_attention
 KERNEL_K34 = "kernel/pmatmul"       # fused.matmul.pmatmul(_stack)
+KERNEL_NORM = "kernel/norm"         # kernels.norm.layer_norm, rms_norm
 RANGES: Tuple[str, ...] = (
     ZO_STEP, ZO_SELECT, ZO_READBACK, MODEL_EMBED, MODEL_ATTN,
     MODEL_RECURRENT, MODEL_FFN, MOE_ROUTE, MOE_DISPATCH, MOE_EXPERTS,
     MOE_COMBINE, MODEL_NORM, MODEL_HEAD_CE, KERNEL_K1, KERNEL_K2,
-    KERNEL_K34)
+    KERNEL_K34, KERNEL_NORM)
 
 # The profiler's Chrome trace drops a name outside ASCII: a span opens a
 # range of its own name, but the probe forwards' ranges spell ε out.

@@ -513,6 +513,144 @@ def test_engine_greedy_equals_lockstep_on_card(dev, prefix_cache):
         assert top2[0] - top2[1] < delta, (i, first, delta.item())
 
 
+def _ulp_dist(a, b):
+    """Per element distance in steps of a's dtype (bf16 or float32)."""
+    if a.dtype == torch.bfloat16:
+        i, j, m = a.view(torch.int16), b.view(torch.int16), 0x7FFF
+    else:
+        i, j, m = a.view(torch.int32), b.view(torch.int32), 0x7FFFFFFF
+
+    def order(t):
+        t = t.to(torch.int64)
+        return torch.where(t < 0, -(t & m), t)
+    return (order(i) - order(j)).abs()
+
+
+@pytest.mark.parametrize("kind,shape,dtype,layout,G", [
+    ("layer", (1008, 5120), torch.bfloat16, "rows", None),   # OPT-13B cells
+    ("layer", (1008, 5120), torch.float32, "rows", None),
+    ("rms", (4080, 2048), torch.bfloat16, "rows", None),     # DeepSeek cell
+    ("rms", (4080, 2048), torch.float32, "rows", None),
+    ("rms", (16, 255, 512), torch.bfloat16, "kv_slice", None),  # stride 576
+    ("rms", (16, 63, 40, 128), torch.bfloat16, "rows", None),   # qk-norm
+    ("layer", (37, 1001), torch.bfloat16, "rows", None),     # odd D, a CTA
+    ("layer", (37, 1001), torch.float32, "rows", None),
+    ("rms", (50, 77), torch.bfloat16, "rows", None),         # odd D, a warp
+    ("layer", (64, 1024), torch.bfloat16, "misaligned", None),
+    ("layer", (2, 504, 5120), torch.bfloat16, "rows", 2),    # paired probes
+    ("rms", (2, 504, 2048), torch.float32, "rows", 2),
+    ("rms", (8, 16384), torch.float32, "rows", None),        # 512 threads
+    ("layer", (8, 12288), torch.bfloat16, "rows", None),     # 256 threads
+])
+def test_norm_kernel_against_plain(dev, kind, shape, dtype, layout, G):
+    """The norm kernel against the plain float32 ops on the same card,
+    and two launches bit for bit.  bf16: within one step on all but
+    0.01 % of elements, and all but 0.1 % equal (the two means are
+    summed in another order).  float32: a last-bit change of mu moves
+    x - mu by many float32 steps where it cancels, so each is held to a
+    float64 oracle instead: the kernel's largest error at most the plain
+    ops' plus one float32 step of the largest output."""
+    from repro_torch.kernels import norm as knorm
+    g = torch.Generator(device=dev).manual_seed(11)
+    D = shape[-1]
+    rnd = lambda s: torch.randn(s, generator=g, device=dev) * 2 + 0.3
+    if layout == "kv_slice":
+        x = rnd(shape[:-1] + (D + 64,)).to(dtype)[..., :D]
+    elif layout == "misaligned":           # row bases 2 or 4 bytes off
+        x = rnd((int(np.prod(shape)) + 1,)).to(dtype)[1:].view(shape)
+    else:
+        x = rnd(shape).to(dtype)
+    ps = tuple(1 + 0.1 * torch.randn((D,) if G is None else (G, 1, D),
+                                     generator=g, device=dev)
+               for _ in range(2 if kind == "layer" else 1))
+    fn, plain = ((knorm.layer_norm, knorm.layer_norm_plain)
+                 if kind == "layer"
+                 else (knorm.rms_norm, knorm.rms_norm_plain))
+    before = knorm.counter.launches
+    got, again, want = fn(x, *ps), fn(x, *ps), plain(x, *ps)
+    assert knorm.counter.launches == before + 2
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        u = _ulp_dist(got, want)
+        assert (u > 1).float().mean().item() <= 1e-4, u.max().item()
+        assert (u > 0).float().mean().item() <= 1e-3
+        return
+    xd = x.double()
+    if kind == "layer":
+        xd = xd - xd.mean(-1, keepdim=True)
+    ref = xd / torch.sqrt((xd * xd).mean(-1, keepdim=True) + 1e-5) * ps[0]
+    if kind == "layer":
+        ref = ref + ps[1]
+    err_k, err_p = ((t.double() - ref).abs().max().item() for t in (got, want))
+    assert err_k <= err_p + 2.0 ** -23 * ref.abs().max().item(), (err_k, err_p)
+
+
+def test_norm_kernel_takes_a_one_rank_mesh_block_by_block(dev):
+    """A replicated DTensor on a one-rank mesh launches the kernel on its
+    block: the same bits as the plain tensor's call, placements kept."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels import norm as knorm
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+    dryrun.fake_world(1)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn((4, 63, 5120), generator=g, device=dev).bfloat16()
+        s, b = (1 + 0.1 * torch.randn((5120,), generator=g, device=dev)
+                for _ in range(2))
+        dt = lambda t: DTensor.from_local(t, mesh, (Replicate(),),
+                                          run_check=False)
+        before = knorm.counter.launches
+        y = layers.layer_norm(dt(x), dt(s), dt(b))
+        assert knorm.counter.launches == before + 1
+        assert isinstance(y, DTensor) and y.placements == (Replicate(),)
+        assert torch.equal(y.to_local(), layers.layer_norm(x, s, b))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_norm_counters_in_a_zo_step_on_card(dev):
+    """A two-point ZO step of a tiny bf16 OPT with materialized probes
+    runs every norm through the kernel: 2 a layer and the final norm, a
+    forward, two forwards; none takes the plain ops.  Under an annotating
+    tracer and a profiler each launch opens ``kernel/norm`` directly
+    inside ``model/norm``."""
+    from repro_torch import obs
+    from repro_torch.estimators import EstimatorConfig, make_step
+    from repro_torch.kernels import norm as knorm
+    L = 3
+    cfg = opt.opt_tiny(layers=L, d_model=128, vocab=512).with_(
+        dtype="bfloat16")
+    p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(6), dev)
+    step, init = make_step(
+        lambda q, b, perturb=None: lm.lm_loss(cfg, q, b, perturb=perturb),
+        zo.build_spec(p, lm.zo_group_fn),
+        EstimatorConfig(eps=1e-3, lr=1e-4, n_drop=1, backend="pallas",
+                        forward_backend="materialized"))
+    toks = torch.tensor(np.random.default_rng(6).integers(0, 512, (4, 31)),
+                        device=dev)
+    b = {"tokens": toks, "labels": toks,
+         "loss_mask": torch.ones((4, 31), device=dev)}
+    before = knorm.counter.launches
+    tr = obs.Tracer()
+    with obs.use(tr):
+        step(p, init(), b, 0, 7)
+    assert tr.counters.get(obs.CTR_NORM_PLAIN, 0) == 0
+    assert tr.counters[obs.CTR_NORM_KERNEL] == 4 * L + 2
+    assert knorm.counter.launches - before == 4 * L + 2
+    with obs.use(obs.Tracer(annotate=True)), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(p, init(), b, 1, 7)
+    kr = [e for e in prof.events() if e.name == obs.trace.KERNEL_NORM]
+    assert len(kr) == 4 * L + 2
+    assert all(e.cpu_parent is not None
+               and e.cpu_parent.name == obs.trace.MODEL_NORM for e in kr)
+
+
 def test_port_loads_no_jax_or_reference():
     """Importing every port module (and chip_smoke.py), the swarm's
     worker entry among them, loads no module of jax or of the JAX
