@@ -183,9 +183,11 @@ when it fails:
              held.  K2 at jamba's GQA (16, 63, 8, 4, 128) and lockstep
              prefill (4, 1024, 8, 4, 128), SDPA beside; K1 on a layer's
              row of jamba's ``we_g`` (939.5 M elements) and on xlstm's
-             float32 ``rh`` stack (the ``ssm_shapes`` rows); the plain
-             ``_ssm_chunk_scan`` at (16, 63, 8192, 16) and one
-             ``slstm_fwd`` at (16, 63, 1024) timed.  One layer of each
+             float32 ``rh`` stack; the selective-scan kernel against
+             its plain ops (``ssm._scan_plain``) at (16, 63, 8192, 16)
+             bf16, train and prefill, both timed beside its bytes bound
+             (the ``ssm_shapes`` rows); one plain ``slstm_fwd`` at
+             (16, 63, 1024) timed.  One layer of each
              recurrent kind at full width: a 128-token prefill and 8
              decode steps against the train forward (within 16 bf16
              steps).  Then xlstm-350m at full width and depth and
@@ -197,7 +199,9 @@ when it fails:
              (K1 a leaf a sweep; K2 an attention layer a forward),
              2 + 5 steady steps, the idle share, a profiled step with
              the Mamba scan, the mLSTM chunk and the sLSTM block by
-             device time; jamba's dropped MoE assignments at capacity
+             device time; one jamba step with the scan's counters
+             zeroed: the kernel once a Mamba layer a forward, the plain
+             ops on the card never; jamba's dropped MoE assignments at capacity
              factor 1.25; each served through the lockstep ``generate``
              (4, 1024) + 32 twice (equal tokens; the engine must refuse
              them) with a decode step timed and profiled.
@@ -3176,11 +3180,13 @@ SSM_DECODE_STEPS = 16                    # decode against train, bf16 steps
 
 
 def ssm_regions():
-    """The recurrent blocks' plain-PyTorch work, labelled in a profile:
-    Mamba's chunk loop (dA/dBx and the doubling scan), one mLSTM chunk,
-    and a whole sLSTM block (its per-step loop and the projections)."""
+    """The recurrent blocks' scans, labelled in a profile: Mamba's
+    selective scan (the kernel's launch, or the plain ops where a call
+    bypasses it), one mLSTM chunk, and a whole sLSTM block (its
+    per-step loop and the projections)."""
+    from repro_torch.kernels import mamba_scan as kscan
     from repro_torch.models import ssm
-    return {"ssm/mamba_scan": (ssm, "_mamba_scan"),
+    return {"ssm/mamba_scan": (kscan, "mamba_scan"),
             "ssm/mlstm_chunk": (ssm, "_mlstm_chunk"),
             "ssm/slstm_fwd": (ssm, "slstm_fwd")}
 
@@ -3191,11 +3197,10 @@ def ssm_parity(jb, xl, eps):
     lockstep prefill (4, 1024, 8, 4, 128) (SDPA with ``enable_gqa``
     beside); K1 on one layer's row of jamba's ``we_g`` (16 x 4096 x
     14336 = 939,524,096 bf16) and on xlstm's float32 ``rh`` stack (3,
-    4 x 256 x 1024), every row active.  Then the plain operations where
-    a recurrent model's time goes (no TPU kernel stands behind them):
-    ``_ssm_chunk_scan`` at jamba's (16, 63, 8192, 16) and one
-    ``slstm_fwd`` at xlstm's (16, 63, 1024).  Returns the ``ssm_shapes``
-    rows by kernel."""
+    4 x 256 x 1024), every row active; the selective-scan kernel at
+    jamba's train shape (``scan_row``).  Then one plain ``slstm_fwd`` at
+    xlstm's (16, 63, 1024), where that model's time goes (no kernel
+    stands behind it).  Returns the ``ssm_shapes`` rows by kernel."""
     import torch
     from repro_torch.models import ssm
 
@@ -3212,19 +3217,10 @@ def ssm_parity(jb, xl, eps):
            torch.float32)
     torch.cuda.empty_cache()
 
+    out["mamba_scan"] = [scan_row(g, jb)]
+    torch.cuda.empty_cache()
+
     Bt, St = 16, 63
-    Di, Ns = jb.mamba_d_inner, jb.mamba_d_state
-    dA = torch.rand((Bt, St, Di, Ns), generator=g, device=dev)
-    dBx = torch.randn((Bt, St, Di, Ns), generator=g, device=dev)
-    C = torch.randn((Bt, St, Ns), generator=g, device=dev)
-    h0 = torch.zeros((Bt, Di, Ns), device=dev)
-    ms = time_ms(lambda: ssm._ssm_chunk_scan(dA, dBx, C, h0), reps=3)
-    nbytes = (2 * dA.numel() + C.numel() + Bt * St * Di) * 4
-    log(f"[ssm] plain _ssm_chunk_scan at ({Bt}, {St}, {Di}, {Ns}) float32 "
-        f"(one chunk, {math.ceil(math.log2(St))} doubling steps): "
-        f"{ms:.3f} ms; its inputs read and y written once take "
-        f"{bound(nbytes)[0]:.3f} ms at the bytes rate")
-    del dA, dBx, C, h0
     p = ssm.slstm_params(xl, g, 1, dev)
     p = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
              else v[0]) for k, v in p.items()}
@@ -3242,6 +3238,106 @@ def ssm_parity(jb, xl, eps):
     del p, x
     torch.cuda.empty_cache()
     return out
+
+
+def scan_row(g, jb):
+    """The selective-scan kernel against its plain ops
+    (``ssm._scan_plain``: softplus, the doubling scan, the skip and the
+    gate in float32) at jamba's train shape (16, 63, 8192, 16) bf16, the
+    arguments laid out as ``ssm.mamba_fwd`` hands them over (x and z the
+    halves of one ``in_proj`` output, B and C slices of the float32
+    ``x_proj`` output).  Train: y within one bf16 step of the plain
+    result (``close``) and its mean error under 2^-9 of the mean |y|;
+    prefill from a nonzero h0: y likewise and the last h within 1e-4 of
+    the largest |h| (the two sum the 63 steps in another order).  Both
+    timed beside the plain ops and the bytes bound (``kscan.cost``: each
+    input read once, y written once).  Returns the row; a launch the
+    wrapper did not make, or a gap past a limit, fails the phase."""
+    import torch
+    from repro_torch.kernels import mamba_scan as kscan
+    from repro_torch.models import ssm
+
+    dev = torch.device("cuda")
+    Bt, S, Di = 16, 63, jb.mamba_d_inner
+    St, R = jb.mamba_d_state, jb.mamba_dt_rank
+    xz = torch.randn((Bt, S, 2 * Di), generator=g, device=dev).to(
+        torch.bfloat16)
+    proj = torch.randn((Bt, S, R + 2 * St), generator=g, device=dev)
+    args = (torch.randn((Bt, S, Di), generator=g, device=dev),   # dt_in dt_w
+            0.1 * torch.randn((Di,), generator=g, device=dev),   # dt_b
+            0.1 * torch.randn((Di, St), generator=g, device=dev),  # A_log
+            xz[..., :Di], proj[..., R:R + St], proj[..., R + St:],
+            torch.randn((Di,), generator=g, device=dev), xz[..., Di:])
+    h0 = torch.randn((Bt, Di, St), generator=g, device=dev)
+    shape = f"jamba train ({Bt}, {S}, {Di}, {St}) bf16"
+    errs = {}
+    for mode, h_in in (("train", None), ("prefill", h0)):
+        before = kscan.counter.launches
+        y, h = kscan.mamba_scan(ssm._scan_plain, *args, h_in,
+                                final=mode == "prefill")
+        if kscan.counter.launches != before + 1:
+            raise SystemExit(f"mamba_scan {shape} {mode}: the wrapper ran "
+                             "the plain ops, not the kernel")
+        want_y, want_h = ssm._scan_plain(*args, h_in)
+        errs[mode] = close(y, want_y, f"mamba_scan {shape} {mode}")
+        mean = ((y.float() - want_y.float()).abs().mean()
+                / want_y.float().abs().mean()).item()
+        if mean > 2.0 ** -9:
+            raise SystemExit(f"mamba_scan {shape} {mode}: mean error "
+                             f"{mean:.3e} of the mean |y|")
+        if mode == "prefill":
+            gap = ((h - want_h).abs().max() / want_h.abs().max()).item()
+            if gap > 1e-4:
+                raise SystemExit(f"mamba_scan {shape} prefill: last h "
+                                 f"{gap:.3e} of the largest |h| away")
+        log(f"[ssm] mamba_scan {shape} {mode}: max|err| "
+            f"{errs[mode]:.3e}, mean err {mean:.3e} of the mean |y|"
+            + (f", last h {gap:.3e} of the largest |h|"
+               if mode == "prefill" else ""))
+    flops, nbytes = kscan.cost(args[0], args[3], args[4])
+    b_ms, b_by = bound(nbytes)
+    row = dict(shape=shape, run="jamba", max_abs_err=max(errs.values()),
+               tolerance="y: one bf16 step (close) and a mean error under "
+               "2^-9 of the mean |y|; the last h within 1e-4 of the largest",
+               ms=time_ms(lambda: kscan.mamba_scan(ssm._scan_plain, *args),
+                          reps=50),
+               plain_ms=time_ms(lambda: ssm._scan_plain(*args, None),
+                                reps=3),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               issue_ms=issue_ms(flops))
+    log(f"[ssm] mamba_scan {shape}: {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e6:.1f} MB), its operations' issue time "
+        f"{row['issue_ms']:.4f} ms")
+    return row
+
+
+def ssm_scan_count(tag, spec, cfg, params):
+    """One ZO step of ``spec`` on ``cfg`` with the scan's counters
+    zeroed: the kernel launched once a Mamba layer a forward (the
+    two-point step's two) and the plain ops on the card never
+    (``obs.CTR_SCAN_PLAIN``).  Returns the launches."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels import mamba_scan as kscan
+
+    n_mamba = sum(st.repeat for st in cfg.stages for b in st.pattern
+                  if b.kind == "mamba")
+    kscan.counter.launches = 0
+    tr = obs.Tracer()
+    with obs.use(tr):
+        step_fn(spec, cfg, params)(0)
+    torch.cuda.synchronize()
+    n = kscan.counter.launches
+    ctr = (tr.counters.get(obs.CTR_SCAN_KERNEL, 0),
+           tr.counters.get(obs.CTR_SCAN_PLAIN, 0))
+    log(f"[ssm] {tag}: one ZO step launched mamba_scan {n} times "
+        f"({n_mamba} Mamba layers, 2 forwards); counters kernel {ctr[0]}, "
+        f"plain {ctr[1]}")
+    if n != 2 * n_mamba or ctr != (n, 0):
+        raise SystemExit(f"ssm: {tag} scan launches {n}, counters {ctr} "
+                         f"(want {2 * n_mamba} and 0 plain)")
+    return n
 
 
 def ssm_decode_check(xl, jb):
@@ -3442,6 +3538,7 @@ def phase_ssm(eps):
     cfg, params, runs["jamba"] = seeded_train(f"ssm {tag}", spec, cfg=cut,
                                               regions=ssm_regions())
     ssm_moe_drops(spec, cfg, params)
+    runs["jamba"]["mamba_scan"] = ssm_scan_count(tag, spec, cfg, params)
     runs["lockstep_jamba"] = ssm_serve(tag, cfg, params, spec)
     del params
     gc.collect()
@@ -5142,6 +5239,9 @@ SOURCES = {
     "norm_rows": ("src/repro_torch/csrc/norm.cu",
                   "no pallas_call: the reference's norms are XLA ops "
                   "(src/repro/models/layers.py:32, :38)"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "no pallas_call: the reference's scan is "
+                   "lax.associative_scan (src/repro/models/ssm.py:82)"),
 }
 
 

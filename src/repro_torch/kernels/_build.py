@@ -33,7 +33,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("zo_axpy", "flash_attn", "pmatmul", "rng_check", "norm")
+SOURCES = ("zo_axpy", "flash_attn", "pmatmul", "rng_check", "norm",
+           "mamba_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
          "-ldl")

@@ -67,10 +67,15 @@ class ModelConfig:
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
     first_dense_d_ff: int = 0        # deepseek: layer-0 dense FFN width
+    moe_renormalize: bool = True     # top-k weights over their sum (Jamba:
+                                     # False, the softmax's own)
+    expert_shard: Tuple[int, int] = (0, 0)  # (first, count) of the experts
+                                     # a layer holds; count 0: all
     # mamba
     mamba_d_state: int = 16
     mamba_expand: int = 2
     mamba_conv: int = 4
+    mamba_dtbc_norm: bool = False    # Jamba's RMSNorms on dt_in, B and C
     # xlstm
     lstm_pf: int = 2                 # mLSTM projection factor
     # misc
@@ -81,6 +86,22 @@ class ModelConfig:
     dtype: str = "bfloat16"
     subquadratic: bool = False       # eligible for long_500k decode
     min_active_layers: int = 1       # forbid rho=1 (paper Fig.3 collapse)
+
+    def __post_init__(self):
+        # a configuration file gives the pair as a JSON list
+        object.__setattr__(self, "expert_shard", tuple(self.expert_shard))
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first, count) of the experts each MoE layer holds: all
+        ``n_experts`` unless ``expert_shard`` names a share of them."""
+        first, count = self.expert_shard
+        if not count:
+            return 0, self.n_experts
+        if first < 0 or first + count > self.n_experts:
+            raise ValueError(f"expert_shard {self.expert_shard} outside the "
+                             f"{self.n_experts} experts")
+        return first, count
 
     @property
     def head_dim(self) -> int:

@@ -13,7 +13,8 @@ dict tree::
                           wo}                                  # mla
     stages.s{i}.b{j}.ffn.{norm.*, wg, wu | wi, wd}               # dense
     stages.s{i}.b{j}.mix.{norm.*, in_proj, conv_w, conv_b, x_proj, dt_w,
-                          dt_b, A_log, Dskip, out_proj}        # mamba
+                          dt_b, A_log, Dskip, out_proj[, dt_norm.scale,
+                          b_norm.scale, c_norm.scale]}         # mamba
     stages.s{i}.b{j}.mix.{norm.*, in_proj, conv_w, conv_b, wq, wk, wv,
                           wif, b_i, b_f, out_norm.scale,
                           out_proj}                            # mlstm

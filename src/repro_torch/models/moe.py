@@ -2,7 +2,8 @@
 (counterpart of ``repro/models/moe.py``).
 
 Routing is DeepSeek/Granite-style: a float32 router, softmax over
-experts, top-k, renormalized.  Dispatch is per batch row: the row's
+experts, top-k, renormalized (``cfg.moe_renormalize``; Jamba takes the
+softmax's own top-k weights).  Dispatch is per batch row: the row's
 token-expert assignments are sorted by expert id (a stable sort, as
 ``jnp.argsort``), each expert takes a contiguous capacity-C slab of a
 (B, E·C + 1, D) buffer whose last slot is the trash slot that dropped
@@ -37,6 +38,13 @@ local F slice of ``we_g``/``we_u``/``we_d`` (and of the shared experts'
 widths do not divide the axis the rules replicate the experts and the
 block takes ``ctx.rowwise`` (:func:`_moe_rowwise`), which gathers
 nothing then.
+
+A layer may hold a share of the experts (``cfg.held_experts``: experts
+``[first, first + count)`` of ``n_experts``), as one card of an
+expert-parallel deployment does: the router, top-k and capacity stay
+over all experts, and an assignment to an expert the layer does not
+hold adds nothing.  The exchange that would bring the other experts'
+part is not here; with every expert held the path is the one above.
 """
 from __future__ import annotations
 
@@ -61,19 +69,21 @@ def capacity(cfg, tokens: int) -> int:
 
 def moe_params(cfg, gen, L, device):
     """One MoE FFN block's leaves, stacked over ``L`` layers: the float32
-    ``router`` (D, E), the experts' ``we_g``/``we_u`` (E, D, F) and
-    ``we_d`` (E, F, D), and the shared experts' ``ws_*`` (width
+    ``router`` (D, E), the held experts' ``we_g``/``we_u`` (Eh, D, F)
+    and ``we_d`` (Eh, F, D) (Eh = E unless ``cfg.expert_shard`` holds a
+    share), and the shared experts' ``ws_*`` (width
     ``n_shared_experts · F``) when configured."""
     E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    Eh = cfg.held_experts[1]
     dt = getattr(torch, cfg.dtype)
     rnd = layers.randn_scaled
     p = {
         "norm": {k: layers._stacked(v, L)
                  for k, v in layers.norm_params(cfg, D, device).items()},
         "router": rnd((L, D, E), D ** -0.5, gen, F32, device),
-        "we_g": rnd((L, E, D, F), D ** -0.5, gen, dt, device),
-        "we_u": rnd((L, E, D, F), D ** -0.5, gen, dt, device),
-        "we_d": rnd((L, E, F, D), F ** -0.5, gen, dt, device),
+        "we_g": rnd((L, Eh, D, F), D ** -0.5, gen, dt, device),
+        "we_u": rnd((L, Eh, D, F), D ** -0.5, gen, dt, device),
+        "we_d": rnd((L, Eh, F, D), F ** -0.5, gen, dt, device),
     }
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * F
@@ -83,11 +93,14 @@ def moe_params(cfg, gen, L, device):
     return p
 
 
-def route(probs, k: int):
+def route(probs, k: int, renormalize: bool = True):
     """(top_w, top_e) of float32 ``probs`` (B, S, E): the k largest
-    probabilities, ties toward the lower expert index, renormalized."""
+    probabilities, ties toward the lower expert index, renormalized to
+    sum to one unless ``renormalize`` is False."""
     top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_e = top_w[..., :k], top_e[..., :k]
+    if not renormalize:
+        return top_w, top_e
     return top_w / torch.sum(top_w, dim=-1, keepdim=True), top_e
 
 
@@ -194,9 +207,12 @@ def _moe_local(cfg, p, x, means=None, tp=None):
     dtype, as the port's dense FFN does (the reference asks XLA for
     float32 results; the smoke configs are float32, where the two are
     the same computation); the combine and the shared experts' sum are
-    float32."""
+    float32.  A layer holding a share of the experts
+    (``cfg.held_experts``) routes over all of them and computes its own
+    experts' terms; the others' assignments go to the trash slot."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    first, Eh = cfg.held_experts
     C = capacity(cfg, S)
     tp = tp or ctx.LOCAL
     h = layers.apply_norm(cfg, p["norm"], x)
@@ -204,7 +220,7 @@ def _moe_local(cfg, p, x, means=None, tp=None):
     with obs.prange(obs.MOE_ROUTE):
         logits = h.to(F32) @ p["router"]
         probs = torch.softmax(logits, dim=-1)
-        top_w, top_e = route(probs, k)
+        top_w, top_e = route(probs, k, cfg.moe_renormalize)
 
         me = torch.mean(probs, dim=(0, 1))
         ce = torch.zeros((B, E), dtype=F32, device=x.device)
@@ -218,15 +234,19 @@ def _moe_local(cfg, p, x, means=None, tp=None):
     # ---- per-row sort-based dispatch -----------------------------------
     with obs.prange(obs.MOE_DISPATCH):
         order, e_s, keep, slot = dispatch(top_e, E, C)
+        if Eh != E:
+            keep = keep & (e_s >= first) & (e_s < first + Eh)
+            slot = torch.where(keep, slot - first * C,
+                               torch.full_like(slot, Eh * C))
         w_s = torch.gather(top_w.reshape(B, S * k), 1, order)
         # each assignment's row of h, read from h repeated k times (flat
         # index t·k + r) at the sort permutation: the gradient goes back
         # through a permutation and a sum over k in a fixed order, where
         # reading h at the token index would scatter-add k rows a token
         hk = h[:, :, None].expand(B, S, k, D).reshape(B, S * k, D)
-        buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=x.device)
+        buf = torch.zeros((B, Eh * C + 1, D), dtype=x.dtype, device=x.device)
         buf.scatter_(1, slot[..., None].expand(-1, -1, D), _rows(hk, order))
-        eb = buf[:, :-1].reshape(B, E, C, D)
+        eb = buf[:, :-1].reshape(B, Eh, C, D)
 
     # ---- expert FFN (batched SwiGLU over the experts) ------------------
     with obs.prange(obs.MOE_EXPERTS):
@@ -234,11 +254,11 @@ def _moe_local(cfg, p, x, means=None, tp=None):
         u = torch.einsum("becd,edf->becf", eb, p["we_u"])
         a = (torch.nn.functional.silu(g.to(F32)) * u.to(F32)).to(x.dtype)
         o = tp.sum(torch.einsum("becf,efd->becd", a, p["we_d"]).to(F32))
-        o = o.reshape(B, E * C, D)
+        o = o.reshape(B, Eh * C, D)
 
     # ---- combine: each token's k terms in sorted order -----------------
     with obs.prange(obs.MOE_COMBINE):
-        contrib = (_rows(o, torch.clamp(slot, 0, E * C - 1))
+        contrib = (_rows(o, torch.clamp(slot, 0, Eh * C - 1))
                    * torch.where(keep, w_s, torch.zeros_like(w_s))[..., None])
         inv = torch.empty_like(order)
         inv.scatter_(1, order, torch.arange(S * k, device=x.device).expand(

@@ -25,8 +25,15 @@ scans and states in float32.  ``softplus`` is JAX's,
 ``log(1 + exp(-|x|)) + max(x, 0)``; ``F.softplus`` returns x past its
 threshold and parts from it.
 
-Every op is plain PyTorch, as the reference's are ``einsum``s and scans
-outside any Pallas kernel.
+On the card the train and prefill scan, with the softplus before it
+and the skip and gate after it, is one launch of the selective-scan
+kernel (``kernels/mamba_scan.py``); decode, the CPU and every call the
+kernel does not take run the plain PyTorch ops below, as the
+reference's are ``einsum``s and scans outside any Pallas kernel.
+
+``cfg.mamba_dtbc_norm`` adds Jamba's RMSNorms on ``dt_in``, ``B`` and
+``C`` after ``x_proj`` (HF ``JambaMambaMixer``'s ``dt_layernorm``,
+``b_layernorm``, ``c_layernorm``): three float32 ``scale`` leaves.
 
 On a mesh (``lm.py::_recurrent``) Mamba runs per rank on its d_inner
 channels, the reference's layout (``ctx.tp_block``): ``in_proj``
@@ -41,7 +48,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import ctx
+from repro_torch.kernels import mamba_scan as kscan
 from repro_torch.models import layers
+from repro_torch.obs import trace as obs
 
 F32 = torch.float32
 CHUNK = 128
@@ -96,7 +105,8 @@ def mamba_params(cfg, gen, L, device):
     ``x_proj`` (Di, R + 2St), ``dt_w`` (R, Di), ``out_proj`` (Di, D) in
     ``cfg.dtype``; ``conv_b`` zeros in ``cfg.dtype``; ``dt_b`` (-4.6,
     softplus^-1(0.01)), ``A_log`` (log 1..St per channel) and ``Dskip``
-    (ones) in float32."""
+    (ones) in float32; with ``cfg.mamba_dtbc_norm`` the ``dt_norm`` (R),
+    ``b_norm`` and ``c_norm`` (St) scales, float32 ones."""
     D, Di, St = cfg.d_model, cfg.mamba_d_inner, cfg.mamba_d_state
     R, K = cfg.mamba_dt_rank, cfg.mamba_conv
     dt = getattr(torch, cfg.dtype)
@@ -112,6 +122,9 @@ def mamba_params(cfg, gen, L, device):
         1, St + 1, dtype=F32, device=device)).expand(L, Di, St).clone()
     p["Dskip"] = torch.ones((L, Di), dtype=F32, device=device)
     p["out_proj"] = rnd((L, Di, D), Di ** -0.5, gen, dt, device)
+    if cfg.mamba_dtbc_norm:
+        for name, d in (("dt_norm", R), ("b_norm", St), ("c_norm", St)):
+            p[name] = {"scale": torch.ones((L, d), dtype=F32, device=device)}
     return p
 
 
@@ -163,11 +176,35 @@ def _mamba_scan(dt, A, Bp, xf, Cp, h0):
     return torch.cat(ys, dim=1), h
 
 
+def _gate(y, Dskip, xf, z, dtype):
+    """The scan's epilogue: (y + Dskip x) silu(z) in float32, rounded
+    to ``dtype``."""
+    y = y + Dskip * xf
+    y = y * F.silu(z.to(F32))
+    return y.to(dtype)
+
+
+def _scan_plain(dt_raw, dt_b, A_log, xc, Bp, Cp, Dskip, z, h0):
+    """The selective-scan kernel's plain version (``kscan.mamba_scan``'s
+    arguments): softplus, ``_mamba_scan`` and the epilogue; returns (y
+    in xc's dtype, the last h)."""
+    dt = softplus(dt_raw + dt_b)                                 # (B,S,Di)
+    A = -torch.exp(A_log)                                        # (Di,St)
+    xf = xc.to(F32)
+    if h0 is None:
+        Bn, _, Di = xc.shape
+        h0 = torch.zeros((Bn, Di, A.shape[-1]), dtype=F32, device=xc.device)
+    y, h = _mamba_scan(dt, A, Bp, xf, Cp, h0)
+    return _gate(y, Dskip, xf, z, xc.dtype), h
+
+
 def mamba_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, tp=None):
     """Mamba block: norm, ``in_proj`` into (x, z), the causal conv and
     float32 ``silu`` (back to the model dtype), the selective
-    projections, the chunked scan (the one-step recurrence in decode),
-    the ``Dskip`` term and the ``silu(z)`` gate, ``out_proj``.  ``cache``
+    projections (Jamba's norms on them with ``cfg.mamba_dtbc_norm``),
+    the scan with the ``Dskip`` term and the ``silu(z)`` gate (the
+    selective-scan kernel on the card, the plain chunked scan elsewhere;
+    the one-step recurrence in decode), ``out_proj``.  ``cache``
     {"conv" (B, K-1, Di), "ssm" (B, Di, St) f32} is the state the
     sequence starts from (prefill and decode).
 
@@ -180,9 +217,7 @@ def mamba_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, tp=None):
     ``dt_in``, ``B`` and ``C``, and ``out_proj``'s (B, S, D) after the
     gate, each summed in float32 and rounded once to the model dtype,
     the dtype of the reference's ``xc @ x_proj`` and ``y @ out_proj``."""
-    B, S, D = x.shape
     St, R = cfg.mamba_d_state, cfg.mamba_dt_rank
-    Di = p["conv_w"].shape[-1]                  # this rank's channels
     tp = tp or ctx.LOCAL
     h = layers.apply_norm(cfg, p["norm"], x)
     xin, z = tp.columns(h @ p["in_proj"], 2, tp.offset("in_proj", -1))
@@ -192,23 +227,27 @@ def mamba_fwd(cfg, p, x, *, mode="train", cache=None, pos=0, tp=None):
 
     proj = tp.sum(xc @ p["x_proj"]).to(F32)
     dt_in, Bp, Cp = torch.split(proj, [R, St, St], dim=-1)
-    dt = softplus(dt_in @ p["dt_w"].to(F32) + p["dt_b"])        # (B,S,Di)
-    A = -torch.exp(p["A_log"])                                   # (Di,St)
-    xf = xc.to(F32)
+    if cfg.mamba_dtbc_norm:
+        dt_in = layers.rms_norm(dt_in, p["dt_norm"]["scale"])
+        Bp = layers.rms_norm(Bp, p["b_norm"]["scale"])
+        Cp = layers.rms_norm(Cp, p["c_norm"]["scale"])
+    dt_raw = dt_in @ p["dt_w"].to(F32)                           # (B,S,Di)
+    h0 = cache["ssm"].to(F32) if cache is not None else None
 
-    h0 = (cache["ssm"].to(F32) if cache is not None
-          else torch.zeros((B, Di, St), dtype=F32, device=x.device))
     if mode == "decode":
+        dt = softplus(dt_raw + p["dt_b"])
+        A = -torch.exp(p["A_log"])                               # (Di,St)
+        xf = xc.to(F32)
         d = dt[:, 0, :, None]
         h1 = torch.exp(d * A) * h0 + d * Bp[:, 0, None, :] * xf[:, 0, :, None]
         y = torch.einsum("bds,bs->bd", h1, Cp[:, 0])[:, None]
-        h_final = h1
+        y, h_final = _gate(y, p["Dskip"], xf, z, x.dtype), h1
     else:
-        y, h_final = _mamba_scan(dt, A, Bp, xf, Cp, h0)
-
-    y = y + p["Dskip"] * xf
-    y = y * F.silu(z.to(F32))
-    out = tp.sum((y.to(x.dtype) @ p["out_proj"]).to(x.dtype))
+        with obs.prange(obs.MAMBA_SCAN):
+            y, h_final = kscan.mamba_scan(
+                _scan_plain, dt_raw, p["dt_b"], p["A_log"], xc, Bp, Cp,
+                p["Dskip"], z, h0, final=mode == "prefill")
+    out = tp.sum((y @ p["out_proj"]).to(x.dtype))
     new_cache = None
     if mode in ("decode", "prefill"):
         new_cache = {"conv": new_conv, "ssm": h_final}

@@ -6,7 +6,8 @@ and run directories of the port (counterpart of ``repro/obs``).
     result when asked), nesting, a zero-allocation disabled path, the
     named ZO step stages and counters for probes, axpy sweeps, RNG folds,
     layer selections, active layers, K3/K4 W tiles and z tiles and the
-    norm kernel's launches and bypasses on the card; with
+    norm and selective-scan kernels' launches and bypasses on the card;
+    with
     ``annotate``, spans and the finer range sites (:data:`RANGES`,
     opened by :func:`prange`) as ``torch.profiler`` ranges.
   * :mod:`~repro_torch.obs.sinks` — in-memory ring buffer + JSONL log.
@@ -36,6 +37,7 @@ from repro_torch.obs.sinks import (JSONLSink, RingSink, read_jsonl,
                                    spans_from_jsonl)
 from repro_torch.obs.trace import (CTR_AXPY, CTR_NORM_KERNEL,
                                    CTR_NORM_PLAIN, CTR_PROBES, CTR_RNG_FOLDS,
+                                   CTR_SCAN_KERNEL, CTR_SCAN_PLAIN,
                                    CTR_SELECTS, CTR_WLOAD, CTR_ZREGEN,
                                    FWD_BASE, FWD_MINUS, FWD_PAIR, FWD_PLUS,
                                    GAUGE_ACTIVE, NULL, PERTURB, RANGES,
@@ -46,7 +48,8 @@ from repro_torch.obs.trace import (CTR_AXPY, CTR_NORM_KERNEL,
 
 __all__ = [
     "CTR_AXPY", "CTR_NORM_KERNEL", "CTR_NORM_PLAIN", "CTR_PROBES",
-    "CTR_RNG_FOLDS", "CTR_SELECTS", "CTR_WLOAD", "CTR_ZREGEN", "Counter",
+    "CTR_RNG_FOLDS", "CTR_SCAN_KERNEL", "CTR_SCAN_PLAIN", "CTR_SELECTS",
+    "CTR_WLOAD", "CTR_ZREGEN", "Counter",
     "DEFAULT_RUNS_DIR", "FWD_BASE", "FWD_MINUS", "FWD_PAIR", "FWD_PLUS",
     "GAUGE_ACTIVE", "Gauge", "HealthAccumulator", "Histogram", "JSONLSink",
     "LATENCY_BUCKETS", "NULL", "NULL_SESSION", "PERTURB", "RANGES",

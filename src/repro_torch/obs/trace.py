@@ -78,6 +78,11 @@ CTR_ZREGEN = "z_regens"
 # calls on CUDA tensors that ran the plain float32 ops instead.
 CTR_NORM_KERNEL = "norm_kernel_calls"
 CTR_NORM_PLAIN = "norm_plain_calls"
+# Mamba scans on the card (kernels.mamba_scan): launches of the
+# selective-scan kernel, and train/prefill scans on CUDA tensors that ran
+# the plain ops instead.
+CTR_SCAN_KERNEL = "scan_kernel_calls"
+CTR_SCAN_PLAIN = "scan_plain_calls"
 GAUGE_ACTIVE = "active_layers"
 
 # Profiler range names (``Tracer.range``), by the site that opens each.
@@ -88,6 +93,7 @@ MODEL_EMBED = "model/embed"         # models.lm: token (+ position) rows
 MODEL_ATTN = "model/attn"           # models.lm._run_block: attn, MLA
 MODEL_RECURRENT = "model/recurrent"  # models.lm._run_block: Mamba, xLSTM
 MODEL_FFN = "model/ffn"             # models.lm._run_block: dense FFN
+MAMBA_SCAN = "model/mamba/scan"     # models.ssm.mamba_fwd: the scan, gated
 MOE_ROUTE = "model/moe/route"       # models.moe: router, softmax, aux
 MOE_DISPATCH = "model/moe/dispatch"  # sort, gather, scatter into slots
 MOE_EXPERTS = "model/moe/experts"   # expert and shared-expert products
@@ -100,9 +106,9 @@ KERNEL_K34 = "kernel/pmatmul"       # fused.matmul.pmatmul(_stack)
 KERNEL_NORM = "kernel/norm"         # kernels.norm.layer_norm, rms_norm
 RANGES: Tuple[str, ...] = (
     ZO_STEP, ZO_SELECT, ZO_READBACK, MODEL_EMBED, MODEL_ATTN,
-    MODEL_RECURRENT, MODEL_FFN, MOE_ROUTE, MOE_DISPATCH, MOE_EXPERTS,
-    MOE_COMBINE, MODEL_NORM, MODEL_HEAD_CE, KERNEL_K1, KERNEL_K2,
-    KERNEL_K34, KERNEL_NORM)
+    MODEL_RECURRENT, MODEL_FFN, MAMBA_SCAN, MOE_ROUTE, MOE_DISPATCH,
+    MOE_EXPERTS, MOE_COMBINE, MODEL_NORM, MODEL_HEAD_CE, KERNEL_K1,
+    KERNEL_K2, KERNEL_K34, KERNEL_NORM)
 
 # The profiler's Chrome trace drops a name outside ASCII: a span opens a
 # range of its own name, but the probe forwards' ranges spell ε out.

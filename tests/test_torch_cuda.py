@@ -73,6 +73,39 @@ def test_zo_axpy_kernel(dev, dtype):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
+def test_zo_axpy_host_mask_does_not_wait_for_the_card(dev):
+    """A host mask reaches the card without a stream synchronization:
+    behind a long spin, the launch returns while the spin still runs,
+    and the result is the plain version's."""
+    theta = torch.randn((4, 1024), device=dev)
+    mask = torch.tensor([True, False, False, True])
+    want = theta.clone()
+    kref.zo_axpy_2d_(want, mask, 0x5EED, 1e-2, 1.0)
+    kzo.zo_axpy_2d_(theta.clone(), mask, 0x5EED, 1e-2, 1.0)   # built
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)             # a spin far longer than a launch
+    kzo.zo_axpy_2d_(theta, mask, 0x5EED, 1e-2, 1.0)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(theta, want, rtol=1e-6, atol=1e-7)
+
+
+def test_zo_axpy_host_mask_changed_in_place_is_copied_again(dev):
+    """The pinned copy of a host mask is made again once the mask has
+    changed in place, and a new mask object gets its own."""
+    theta = torch.randn((4, 256), device=dev)
+    want = theta.clone()
+    mask = torch.tensor([True, False, False, False])
+    for step in range(3):
+        kzo.zo_axpy_2d_(theta, mask, 7 + step, 1e-2, 1.0)
+        kref.zo_axpy_2d_(want, mask, 7 + step, 1e-2, 1.0)
+        mask[step + 1] = True
+    mask = torch.tensor([False, True, False, True])
+    kzo.zo_axpy_2d_(theta, mask, 11, 1e-2, 1.0)
+    kref.zo_axpy_2d_(want, mask, 11, 1e-2, 1.0)
+    torch.testing.assert_close(theta, want, rtol=1e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("L,n,offset", [
     (3, 4096, 3),       # row bases 6 bytes past a 16-byte boundary
     (4, 7, 1),          # rows shorter than one vector: head and tail only
@@ -649,6 +682,131 @@ def test_norm_counters_in_a_zo_step_on_card(dev):
     assert len(kr) == 4 * L + 2
     assert all(e.cpu_parent is not None
                and e.cpu_parent.name == obs.trace.MODEL_NORM for e in kr)
+
+
+def _scan_inputs(dev, Bn, S, Di, St, dtype, h0, seed=9):
+    """The scan's arguments as ``mamba_fwd`` hands them over: x and z
+    the two halves of one (Bn, S, 2 Di) projection, B and C slices of
+    one (Bn, S, R + 2 St) float32 projection (row strides 2 Di and R +
+    2 St), at Jamba's ranges (delta about 0.3-1.3, A about -1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R = 8
+    xz = torch.randn((Bn, S, 2 * Di), generator=g, device=dev).to(dtype)
+    proj = torch.randn((Bn, S, R + 2 * St), generator=g, device=dev)
+    return (torch.randn((Bn, S, Di), generator=g, device=dev),
+            0.1 * torch.randn((Di,), generator=g, device=dev),
+            0.1 * torch.randn((Di, St), generator=g, device=dev),
+            xz[..., :Di], proj[..., R:R + St], proj[..., R + St:],
+            torch.randn((Di,), generator=g, device=dev), xz[..., Di:],
+            None if not h0 else torch.randn((Bn, Di, St), generator=g,
+                                             device=dev))
+
+
+@pytest.mark.parametrize("Bn,S,Di,St,dtype,h0,final", [
+    (16, 63, 8192, 16, torch.bfloat16, False, False),  # Jamba's train shape
+    (2, 37, 300, 16, torch.bfloat16, True, True),      # ragged S and Di
+    (3, 100, 4096, 16, torch.float32, True, True),     # a TP rank's half
+    (2, 1, 130, 8, torch.bfloat16, True, True),        # one step, St 8
+    (1, 33, 64, 4, torch.float32, False, True),        # a tile and one
+])
+def test_mamba_scan_kernel_against_plain(dev, Bn, S, Di, St, dtype, h0,
+                                         final):
+    """The selective-scan kernel against ``ssm._scan_plain`` (softplus,
+    the doubling ``_mamba_scan``, the skip and the gate) on the card, in
+    train (no final state) and prefill (the last h), from h0 zero and
+    not, at S off the kernel's 32-step tile and a channel count off its
+    128.  Tolerance: y within one bf16 rounding step of the plain result
+    (``_close``), or 1e-4 relative in float32 (the sequential scan sums
+    in another order than the doubling scan and takes exp and log from
+    the SFU, a few float32 ulp a step compounded over S); h within
+    1e-4."""
+    from repro_torch.kernels import mamba_scan as kscan
+    from repro_torch.models import ssm
+    args = _scan_inputs(dev, Bn, S, Di, St, dtype, h0)
+    before = kscan.counter.launches
+    y, h = kscan.mamba_scan(ssm._scan_plain, *args, final=final)
+    assert kscan.counter.launches == before + 1
+    torch.cuda.synchronize()
+    want_y, want_h = ssm._scan_plain(*args)
+    assert y.dtype == dtype and y.shape == (Bn, S, Di)
+    if dtype == torch.bfloat16:
+        _close(y, want_y)
+    else:
+        torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-5)
+    if final:
+        torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-5)
+    else:
+        assert h is None
+
+
+def test_mamba_scan_counters_and_bypass(dev):
+    """Under a tracer a scan the kernel takes counts one launch in
+    ``obs.CTR_SCAN_KERNEL``; one recorded by autograd (an input that
+    wants a gradient) runs the plain ops and counts in
+    ``obs.CTR_SCAN_PLAIN``; a Jamba smoke ZO step on the card (the
+    published fields on, bf16) launches the kernel once a Mamba layer a
+    forward and bypasses it never (the smoke widened to d_model 128, K2's
+    head dim 32)."""
+    from repro_torch import configs, obs
+    from repro_torch.estimators import EstimatorConfig, make_step
+    from repro_torch.kernels import mamba_scan as kscan
+    from repro_torch.models import ssm
+    args = _scan_inputs(dev, 2, 20, 256, 16, torch.bfloat16, False)
+    tr = obs.Tracer()
+    with obs.use(tr):
+        kscan.mamba_scan(ssm._scan_plain, *args)
+        grad = (args[0].clone().requires_grad_(),) + args[1:]
+        y, _ = kscan.mamba_scan(ssm._scan_plain, *grad)
+    assert y.requires_grad
+    assert tr.counters == {obs.CTR_SCAN_KERNEL: 1, obs.CTR_SCAN_PLAIN: 1}
+    cfg = configs.get("jamba-v0.1-52b", "smoke").with_(
+        dtype="bfloat16", d_model=128, mamba_dtbc_norm=True,
+        moe_renormalize=False, expert_shard=(1, 2), pos_emb="none")
+    p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(6), dev)
+    step, init = make_step(
+        lambda q, b, perturb=None: lm.lm_loss(cfg, q, b, perturb=perturb),
+        zo.build_spec(p, lm.zo_group_fn),
+        EstimatorConfig(eps=1e-3, lr=1e-4, n_drop=1, backend="pallas",
+                        forward_backend="materialized"))
+    toks = torch.tensor(np.random.default_rng(6).integers(0, cfg.vocab,
+                                                          (4, 31)),
+                        device=dev)
+    b = {"tokens": toks, "labels": toks,
+         "loss_mask": torch.ones((4, 31), device=dev)}
+    n_mamba = sum(st.repeat for st in cfg.stages for blk in st.pattern
+                  if blk.kind == "mamba")
+    before = kscan.counter.launches
+    tr = obs.Tracer()
+    with obs.use(tr):
+        _, _, m = step(p, init(), b, 0, 7)
+    assert tr.counters.get(obs.CTR_SCAN_PLAIN, 0) == 0
+    assert tr.counters[obs.CTR_SCAN_KERNEL] == 2 * n_mamba
+    assert kscan.counter.launches - before == 2 * n_mamba
+    assert np.isfinite(float(m["l_plus"])) and np.isfinite(
+        float(m["l_minus"]))
+
+
+def test_jamba_published_loss_on_card_matches_cpu(dev):
+    """Jamba's smoke model in bf16, widened to d_model 128 (K2's head
+    dim 32), with the published fields (dt/B/C norms, top-2
+    unrenormalized, experts 1-2 of 4 held, no rope): the card's loss
+    (the scan kernel, the norm kernel, K2) against the CPU's plain ops
+    within 1e-2, as ``test_small_model_pair_loss_matches_cpu`` holds
+    OPT's (bf16 activations rounded at other places on the two)."""
+    from repro_torch import configs
+    cfg = configs.get("jamba-v0.1-52b", "smoke").with_(
+        dtype="bfloat16", d_model=128, mamba_dtbc_norm=True,
+        moe_renormalize=False, expert_shard=(1, 2), pos_emb="none")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    p_gpu = lm.params_from_numpy(cfg, lm.params_to_numpy(p_cpu), dev)
+    toks = torch.tensor(np.random.default_rng(7).integers(0, cfg.vocab,
+                                                          (4, 63)))
+    b = {"tokens": toks, "labels": toks, "loss_mask": torch.ones((4, 63))}
+    with torch.no_grad():
+        want = float(lm.lm_loss(cfg, p_cpu, b))
+        got = float(lm.lm_loss(cfg, p_gpu, {k: v.to(dev)
+                                            for k, v in b.items()}))
+    assert abs(got - want) <= 1e-2 * abs(want), (got, want)
 
 
 def test_port_loads_no_jax_or_reference():

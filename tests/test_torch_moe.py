@@ -40,6 +40,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
+from _port_cfg import as_reference
 
 torch.set_num_threads(2)              # six xdist workers share the CPUs
 
@@ -590,7 +591,7 @@ def test_materialized_spec_validates_and_runs(arch):
                                              over))
     jcfg = japi.validate(japi.with_overrides(japi.preset("lezo-opt13b"),
                                              over))
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert as_reference(tcfg) == dataclasses.asdict(jcfg)
     spec = tapi.with_overrides(tapi.preset("lezo-opt13b"), {
         **over, "model.variant": "smoke", "model.seq_len": 9,
         "run.steps": 2, "run.batch_size": 2, "run.eval_every": 0})
@@ -610,7 +611,7 @@ def test_ssm_archs_still_unported(arch):
     assert arch in jconfigs.list_archs()
     assert arch in tconfigs.list_archs()
     over = {"model.arch": arch}
-    assert dataclasses.asdict(tapi.validate(tapi.with_overrides(
+    assert as_reference(tapi.validate(tapi.with_overrides(
         tapi.preset("lezo-opt13b"), over))) == dataclasses.asdict(
         japi.validate(japi.with_overrides(japi.preset("lezo-opt13b"), over)))
     with pytest.raises(tapi.SpecError, match="materialized") as e:
@@ -646,7 +647,7 @@ def test_configs_match_reference(arch):
     archs and the recurrent ones); deepseek's head_dim resolves to 128
     (+ 64 rope) at full size."""
     for variant in ("full", "smoke"):
-        assert dataclasses.asdict(tconfigs.get(arch, variant)) == \
+        assert as_reference(tconfigs.get(arch, variant)) == \
             dataclasses.asdict(jconfigs.get(arch, variant)), variant
     c = tconfigs.get("deepseek-v2-lite-16b")
     assert (c.head_dim, c.rope_head_dim, c.kv_lora, c.num_layers) == (

@@ -40,6 +40,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
 from repro_torch.models import ssm as tssm
 from repro_torch.models.config import BlockCfg, ModelConfig, StageCfg
+from _port_cfg import as_reference
 
 torch.set_num_threads(2)              # six xdist workers share the CPUs
 
@@ -530,7 +531,7 @@ def test_specs_validate_materialized_only(arch, fb):
                                                  over))
         jcfg = japi.validate(japi.with_overrides(japi.preset("lezo-opt13b"),
                                                  over))
-        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        assert as_reference(tcfg) == dataclasses.asdict(jcfg)
         over["runtime.forward_backend"] = fb
         for api in (japi, tapi):
             with pytest.raises(api.SpecError) as e:

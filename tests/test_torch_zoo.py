@@ -48,6 +48,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import frontends as tfront
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from _port_cfg import as_reference
 
 torch.set_num_threads(2)              # six xdist workers share the CPUs
 
@@ -436,7 +437,7 @@ def test_stub_embeddings_unit_rms():
 def test_full_configs_match_reference(arch):
     """Every field of every variant equals the reference's config."""
     for variant in ("full", "smoke"):
-        assert dataclasses.asdict(tconfigs.get(arch, variant)) == \
+        assert as_reference(tconfigs.get(arch, variant)) == \
             dataclasses.asdict(jconfigs.get(arch, variant)), variant
 
 
@@ -467,7 +468,7 @@ def test_unported_archs_rejected(arch):
     assert arch in tconfigs.list_archs()
     assert sorted(tconfigs.list_archs()) == sorted(jconfigs.list_archs())
     for variant in ("full", "smoke"):
-        assert dataclasses.asdict(tconfigs.get(arch, variant)) == \
+        assert as_reference(tconfigs.get(arch, variant)) == \
             dataclasses.asdict(jconfigs.get(arch, variant)), variant
     spec = tapi.with_overrides(tapi.preset("lezo-opt13b"),
                                {"model.arch": arch})
